@@ -3,22 +3,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``pillarnext_tpu_torch/csrc``, holds
-each against its plain PyTorch version at the flagship shapes, then serves
-frames of the flagship PillarNeXt-B config (nusc_det_pp18_aspp_iou_sp, full
-width, random weights from a seed) through the port's AdaptivePredictor and
-checks that the main path launched both kernels.  Every phase prints one
-JSON line; the last line is ``{"ok": true, "device": {...}}``.  Any
-mismatch raises and the script exits non-zero; without a CUDA device it
-exits non-zero before doing anything.
+Builds the port's CUDA kernels from ``pillarnext_tpu_torch/csrc`` (one
+``nvcc`` per source, all at once), holds each against its plain PyTorch
+version at the flagship shapes, then drives the port's two main paths at
+the full width of the flagship PillarNeXt-B config
+(nusc_det_pp18_aspp_iou_sp, random weights from a seed):
+
+- serving: frames through the port's AdaptivePredictor, bf16, batch 1;
+- training: the port's Trainer, bf16, batch 4 of seeded synthetic scenes
+  at the dataloader's 300000-point capacity, five steps.
+
+Each path runs with the launch counters set to 0 just before it and read
+just after, and fails unless every kernel of that path launched.  Every
+phase prints one JSON line; before the last line come the card's name and
+power limit and the ``kernels`` line; the last line is ``{"ok": true,
+"device": {...}}``.  Any mismatch raises and the script exits non-zero;
+without a CUDA device it exits non-zero before doing anything.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -29,6 +39,9 @@ FLAGSHIP = REPO / "pillarnext_tpu/configs/experiments/nusc_det_pp18_aspp_iou_sp.
 N_POINTS = 200_000
 TIMED_RUNS = 25
 LATENCY_FRAMES = 10
+TRAIN_STEPS = 5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
 
 
 def emit(record: dict) -> None:
@@ -50,8 +63,17 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, flops: float, dtype) -> dict:
+    """The least time the card could take: bytes over the memory rate, or
+    operations over the peak rate for their type, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
 def frame(pc_range, seed: int, device):
-    from pillarnext_tpu.utils.synth import lidar_like_points
+    from pillarnext_tpu_torch.utils.synth import lidar_like_points
 
     pts, mask = lidar_like_points(1, N_POINTS, pc_range, seed=seed)
     return torch.from_numpy(pts).to(device), torch.from_numpy(mask).to(device)
@@ -78,7 +100,7 @@ def check_pfn(reader, points, mask, gen, device, records):
     bn0 = torch.stack([torch.rand(c0, generator=gen) + 0.5, 0.2 * torch.randn(c0, generator=gen)])
     bn1 = torch.stack([torch.rand(c1, generator=gen) + 0.5, 0.2 * torch.randn(c1, generator=gen)])
     w0, w1, bn0, bn1 = (t.to(device) for t in (w0, w1, bn0, bn1))
-    feats16, slot, _, n_pillars, cap = reader.decorate(points, mask)  # bf16 model
+    feats16, slot, _, n_pillars, cap, _ = reader.decorate(points, mask)  # bf16 model
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         feats = feats16.to(dtype)
@@ -87,14 +109,19 @@ def check_pfn(reader, points, mask, gen, device, records):
         torch.cuda.synchronize()
         zero_rows_equal = torch.equal((got == 0).all(1), (want == 0).all(1))
         err = (got.float() - want.float()).abs()
+        n, es = feats.shape[0], feats.element_size()
+        nbytes = n * df * es + n * 4 + (cap + 1) * 4 + (cap + 1) * c1 * es
+        nbytes += (df * c0 + 2 * c0 + 2 * c0 * c1 + 2 * c1) * 4
         rec = {
             "phase": "kernel_vs_plain", "kernel": "pfn_two_layer", "dtype": str(dtype),
-            "shape": {"points": feats.shape[0], "df": df, "c0": c0, "c1": c1, "cap": cap},
+            "shape": {"points": n, "df": df, "c0": c0, "c1": c1, "cap": cap},
             "occupied_pillars": int(n_pillars),
             "max_points_per_pillar": int(torch.bincount(slot[slot < cap].long()).max()),
             "max_abs_err": float(err.max()), "zero_rows_equal": zero_rows_equal,
             "ms": median_ms(lambda: pfn_two_layer(*args)),
             "plain_ms": median_ms(lambda: pfn_two_layer_plain(*args)),
+            "library_ms": None,
+            **bound(nbytes, 2.0 * n * (df * c0 + 2 * c0 * c1), dtype),
         }
         if dtype == torch.float32:
             ok = torch.allclose(got, want, atol=1e-5, rtol=1e-5)
@@ -115,23 +142,66 @@ def check_pfn(reader, points, mask, gen, device, records):
     return slot, cap
 
 
-def check_gather(reader, points, mask, slot, cap, gen, device, records):
-    """Kernel 2 vs its plain version, bit-exact, at the main path's shapes."""
+def train_gather_inputs(cfg, batch, device) -> list:
+    """(name, table, idx) of every kernel-2 launch in one bf16 train step
+    (forward and backward, no update) of the flagship on the train batch:
+    the cluster-mean gather of the reader, the H/8 densify of the
+    all-sparse backbone, and the densify's backward gather."""
+    from pillarnext_tpu_torch.ops import densify, scatter
+    from pillarnext_tpu_torch.ops.gather import monotone_row_gather
+    from pillarnext_tpu_torch.train.trainer import batch_to_device
+    from pillarnext_tpu_torch.utils.builders import build_model
+
+    calls = []
+
+    def capture(table, idx):
+        calls.append((table.detach().clone(), idx.clone()))
+        return monotone_row_gather(table, idx)
+
+    model = build_model(cfg["model"], device=device, generator=torch.Generator().manual_seed(0), train=True)
+    saved = scatter.monotone_row_gather, densify.monotone_row_gather
+    scatter.monotone_row_gather = densify.monotone_row_gather = capture
+    try:
+        loss, _ = model.loss(batch_to_device(batch, device))
+        loss.backward()
+    finally:
+        scatter.monotone_row_gather, densify.monotone_row_gather = saved
+    del model, loss
+    names = ("train_cluster_mean_gather", "train_densify_h8", "train_densify_backward")
+    if len(calls) != len(names):
+        raise AssertionError(f"a train step launched kernel 2 {len(calls)} times, expected {len(names)}")
+    return [(name, table, idx) for name, (table, idx) in zip(names, calls)]
+
+
+def check_gather(reader, points, mask, slot, cap, gen, device, records, train_cases):
+    """Kernel 2 vs its plain version, bit-exact, at the main paths' shapes:
+    the serving shapes on random tables, and ``train_cases`` — the tables
+    and index streams of a train step, in the dtypes that step used."""
     from pillarnext_tpu_torch.ops.compact import invert_slot_map
     from pillarnext_tpu_torch.ops.gather import monotone_row_gather, monotone_row_gather_plain
 
-    _, _, slot_id, _, _ = reader.decorate(points, mask)
+    _, _, slot_id, _, _, _ = reader.decorate(points, mask)
     slot_of_dense, _ = invert_slot_map(slot_id, reader.grid.num_pillars)
+
+    def random_table(rows, c, dtype):
+        return torch.randn(rows, c, generator=gen).to(device=device, dtype=dtype)
+
     cases = [
-        ("densify", torch.bfloat16, cap, 64, slot_of_dense),
-        ("pfn_back_gather", torch.bfloat16, cap, 32, slot),
-        ("cluster_mean_gather", torch.float32, cap, 3, slot),
+        ("densify", random_table(cap, 64, torch.bfloat16), slot_of_dense),
+        ("pfn_back_gather", random_table(cap, 32, torch.bfloat16), slot),
+        ("cluster_mean_gather", random_table(cap, 3, torch.float32), slot),
+        *train_cases,
     ]
-    for name, dtype, rows, c, idx in cases:
-        table = torch.randn(rows, c, generator=gen).to(device=device, dtype=dtype)
+    for name, table, idx in cases:
+        (rows, c), dtype = table.shape, table.dtype
         got = monotone_row_gather(table, idx)
         want = monotone_row_gather_plain(table, idx)
         torch.cuda.synchronize()
+        es = table.element_size()
+        # the library call: index_select on the table with its zero dump row
+        # (the densify's own (cap + 1)-row table), which the idx stream
+        # addresses directly
+        full = torch.cat([table, table.new_zeros((1, c))])
         rec = {
             "phase": "kernel_vs_plain", "kernel": "monotone_row_gather", "case": name,
             "dtype": str(dtype), "shape": {"rows": idx.shape[0], "table_rows": rows, "c": c},
@@ -139,12 +209,65 @@ def check_gather(reader, points, mask, slot, cap, gen, device, records):
             "max_abs_err": float((got.float() - want.float()).abs().max()),
             "ms": median_ms(lambda: monotone_row_gather(table, idx)),
             "plain_ms": median_ms(lambda: monotone_row_gather_plain(table, idx)),
+            "library_ms": median_ms(lambda: full.index_select(0, idx)),
+            **bound(rows * c * es + idx.shape[0] * (4 + c * es), 0.0, dtype),
         }
         emit(rec)
         if not rec["bit_exact"]:
             raise AssertionError(f"monotone_row_gather is not bit-exact: {rec}")
         if name == "densify":
             records["monotone_row_gather"] = rec
+
+
+def check_segscan(train_slot, gen, device, records):
+    """Kernel 3 vs its plain version at the train shape (B = 4 x 300000
+    points, 32 channels), on the train batch's own slot stream and on a
+    stream whose last segment holds half the rows (600k): max bit-exact, sum within 1e-5 of the
+    segment's sum of magnitudes in f32 (sums in another order; the plain
+    version adds with atomics) and one bf16 rounding in bf16."""
+    from pillarnext_tpu_torch.ops.segscan import sorted_segment_bcast, sorted_segment_bcast_plain
+
+    n = train_slot.shape[0]
+    half = n // 2  # 600k rows at the train shape
+    giant = torch.cat([
+        torch.sort(torch.randint(0, max(half // 5, 1), (n - half,), generator=gen)).values,
+        torch.full((half,), half // 5 + 1),
+    ]).to(device=device, dtype=torch.int32)
+    for case, seg in (("train_slots", train_slot), ("one_segment_of_half", giant)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(n, 32, generator=gen).to(device=device, dtype=dtype)
+            for reduce in ("max", "sum"):
+                got = sorted_segment_bcast(x, seg, reduce)
+                want = sorted_segment_bcast_plain(x, seg, reduce)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                if reduce == "max":
+                    ok, tol = torch.equal(got, want), "bit-exact"
+                elif dtype == torch.float32:
+                    mag = sorted_segment_bcast_plain(x.abs(), seg, "sum")
+                    ok, tol = bool((err <= 1e-5 * mag).all()), "<= 1e-5 of the segment's sum of |x|"
+                    err_rel = float((err / mag.clamp(min=1e-30)).max())
+                else:
+                    ulps = bf16_ulps(got, want)
+                    ok, tol = float(ulps.max()) <= 1.0, "<= 1 bf16 ulp"
+                es = x.element_size()
+                rec = {
+                    "phase": "kernel_vs_plain", "kernel": "sorted_segment_bcast", "case": case,
+                    "dtype": str(dtype), "reduce": reduce,
+                    "shape": {"rows": n, "c": 32, "segments": int(torch.unique_consecutive(seg).numel())},
+                    "max_abs_err": float(err.max()), "bit_exact": torch.equal(got, want), "tolerance": tol,
+                    "ms": median_ms(lambda: sorted_segment_bcast(x, seg, reduce)),
+                    "plain_ms": median_ms(lambda: sorted_segment_bcast_plain(x, seg, reduce)),
+                    "library_ms": None,
+                    **bound(n * 32 * es * 2 + n * 4, n * 32.0, dtype),
+                }
+                if reduce == "sum" and dtype == torch.float32:
+                    rec["max_err_over_magnitude"] = err_rel
+                emit(rec)
+                if not ok:
+                    raise AssertionError(f"sorted_segment_bcast disagrees with its plain version: {rec}")
+                if case == "train_slots" and dtype == torch.bfloat16 and reduce == "max":
+                    records["sorted_segment_bcast"] = rec
 
 
 def layer_breakdown(model, points, mask, capacity):
@@ -182,54 +305,96 @@ def layer_breakdown(model, points, mask, capacity):
     }
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; a CUDA GPU is required")
-    sys.path.insert(0, str(REPO))
-    from pillarnext_tpu.utils.config import load_experiment
-    from pillarnext_tpu_torch.ops import kernels
+def train_breakdown(model, optimizer, batch, device):
+    """CUDA-synchronised host time of each part of one train step (ms)."""
+    from pillarnext_tpu_torch.train.trainer import batch_to_device
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    model.train()
+    ex, h2d_ms = timed(lambda: batch_to_device(batch, device))
+    sb, reader_ms = timed(lambda: model.reader(ex["points"], ex["points_mask"]))
+    x, backbone_ms = timed(lambda: model.backbone(sb))
+    x, neck_ms = timed(lambda: model.neck(x))
+    (loss, _), head_ms = timed(lambda: model.head.loss(ex, model.head(x)))
+    for p in optimizer.params:
+        p.grad = None
+    _, backward_ms = timed(loss.backward)
+    _, opt_ms = timed(optimizer.step)
+    return {"host_to_device": h2d_ms, "reader": reader_ms, "backbone": backbone_ms,
+            "neck": neck_ms, "head_and_loss": head_ms, "backward": backward_ms,
+            "clip_adamw": opt_ms}
+
+
+def profile_train_steps(model, optimizer, batches, device, steps: int = 2) -> dict:
+    """Device time of ``steps`` train steps under torch.profiler: the
+    card's busy share of the wall time, kernel launches, and the kernels
+    that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pillarnext_tpu_torch.train.train_state import train_step
+    from pillarnext_tpu_torch.train.trainer import batch_to_device
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[:steps]:
+            train_step(model, optimizer, batch_to_device(b, device))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in kernels) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.device_time / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "launches_per_step": len(kernels) / steps,
+            "top_kernels_ms_per_step": [
+                {"name": k[:90], "ms": t / steps, "launches": n / steps} for k, (t, n) in top
+            ]}
+
+
+class TimedLoader:
+    """The train batches, with a CUDA-synchronised timestamp at each yield:
+    the time between two yields is one step of the Trainer."""
+
+    def __init__(self, batches):
+        self.batches = batches
+        self.stamps: list[float] = []
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        for b in self.batches:
+            torch.cuda.synchronize()
+            self.stamps.append(time.perf_counter())
+            yield b
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+
+def serving_path(cfg, model, pc_range, device):
+    """The serving main path, bf16, through AdaptivePredictor."""
     from pillarnext_tpu_torch.ops.gather import monotone_row_gather
     from pillarnext_tpu_torch.ops.pfn import pfn_two_layer
+    from pillarnext_tpu_torch.ops.segscan import sorted_segment_bcast
     from pillarnext_tpu_torch.serving import AdaptivePredictor
-    from pillarnext_tpu_torch.utils.builders import build_model
 
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-    # phase 1: the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
-
-    # phase 2: build both kernels from the checkout's sources
-    t0 = time.perf_counter()
-    _, build = kernels.library()
-    ptxas = [ln.strip() for ln in build["ptxas"].splitlines() if "registers" in ln or "Compiling" in ln]
-    emit({"phase": "build", "nvcc_seconds": build["seconds"],
-          "wall_seconds": time.perf_counter() - t0, "ptxas": ptxas})
-
-    # phase 3: each kernel vs its plain version at the flagship shapes
-    cfg = load_experiment(FLAGSHIP)["model"]
-    pc_range = cfg["reader"]["pc_range"]
-    gen = torch.Generator().manual_seed(0)
-    model = build_model(cfg, device=device, generator=gen)
-    points, mask = frame(pc_range, 0, device)
-    records: dict = {}
-    with torch.inference_mode():
-        slot, cap = check_pfn(model.reader, points, mask, gen, device, records)
-        check_gather(model.reader, points, mask, slot, cap, gen, device, records)
-
-    # phase 4: the main path, bf16, through the serving entry point
     engine = AdaptivePredictor(model)
     frames = [frame(pc_range, seed, device) for seed in (0, 1, 2)]
-    pfn_two_layer.launches = 0
-    monotone_row_gather.launches = 0
+    counters = (pfn_two_layer, monotone_row_gather, sorted_segment_bcast)
+    for k in counters:
+        k.launches = 0
     engine.warmup(*frames[0])
     per_frame = []
     for seed, (p, m) in zip((0, 1, 2), frames):
@@ -248,21 +413,160 @@ def main() -> None:
         engine.predict(*frames[0])
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
-    launches = {"pfn_two_layer": pfn_two_layer.launches,
-                "monotone_row_gather": monotone_row_gather.launches}
-    emit({"phase": "main_path", "dtype": "bfloat16", "frames": per_frame,
+    launches = {k.__name__: k.launches for k in counters}
+    emit({"phase": "main_path", "path": "serving", "dtype": "bfloat16", "frames": per_frame,
           "buckets": list(engine.buckets), "operating_bucket": engine._operating_bucket(),
           "peak_required": engine.peak_required, "repaired": engine.repaired,
           "latency_ms_median": statistics.median(latencies), "latency_ms": latencies,
           "launches": launches,
           "breakdown_ms": layer_breakdown(model, *frames[0], engine._operating_bucket()),
           "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20})
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"the main path never launched {name}")
+    for name in ("pfn_two_layer", "monotone_row_gather"):
+        if launches[name] == 0:
+            raise AssertionError(f"the serving path never launched {name}")
+    return frames, launches
 
-    # phase 5: f32, kernels vs plain versions on the same frame (report only)
-    cfg32 = dict(cfg, dtype="float32")
+
+def train_path(cfg, batches, device, work_dir):
+    """The training main path, bf16, B = 4, through the port's Trainer."""
+    from pillarnext_tpu_torch.ops.gather import monotone_row_gather
+    from pillarnext_tpu_torch.ops.pfn import pfn_two_layer
+    from pillarnext_tpu_torch.ops.segscan import sorted_segment_bcast
+    from pillarnext_tpu_torch.train.trainer import Trainer
+    from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
+
+    model = build_model(cfg["model"], device=device, generator=torch.Generator().manual_seed(0), train=True)
+    opt, sched = build_optimizer(cfg, len(batches), list(model.parameters()))
+    loader = TimedLoader(batches)
+    trainer = Trainer(model, loader, opt, sched, max_epochs=1, log_every_niters=1,
+                      work_dir=work_dir, device=device)
+    counters = (pfn_two_layer, monotone_row_gather, sorted_segment_bcast)
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters:
+        k.launches = 0
+    trainer.train_epoch()
+    launches = {k.__name__: k.launches for k in counters}
+    losses = [float(v) for v in trainer.epoch_losses]
+    tel = {k: int(v) for k, v in trainer.last_scalars["telemetry"].items()}
+    step_ms = [(b - a) * 1e3 for a, b in zip(loader.stamps[:-1], loader.stamps[1:])]
+    rec = {
+        "phase": "main_path", "path": "train", "dtype": cfg["model"].get("dtype", "bfloat16"),
+        "batch_size": int(batches[0]["points"].shape[0]), "max_points": int(batches[0]["points"].shape[1]),
+        "points_per_scene": N_POINTS, "steps": len(step_ms), "losses": losses,
+        "grad_norm_last": float(trainer.last_scalars["grad_norm"]),
+        "step_ms": step_ms, "step_ms_median_after_first": statistics.median(step_ms[1:]),
+        "telemetry_last_step": tel, "launches": launches,
+        "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
+        "breakdown_ms": train_breakdown(model, opt, batches[0], device),
+        "profile": profile_train_steps(model, opt, batches, device),
+    }
+    emit(rec)
+    if len(losses) < TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train path losses: {losses}")
+    for name in ("monotone_row_gather", "sorted_segment_bcast"):
+        if launches[name] == 0:
+            raise AssertionError(f"the train path never launched {name}")
+    return model, launches
+
+
+def f32_train_kernels_vs_plain(cfg, batch, device):
+    """One f32 train step with the kernels and one with their plain
+    versions, same weights and batch, PyTorch's deterministic algorithms
+    on.  Kernel 3's max and kernel 2's gathers are exact, so the losses
+    agree to 1e-6 relative; the gradients differ by kernel 3's ``sum``
+    order in the PFN backward: each tensor within 1e-3 of its largest
+    magnitude."""
+    from pillarnext_tpu_torch.train.train_state import train_step
+    from pillarnext_tpu_torch.train.trainer import batch_to_device
+    from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
+
+    cfg32 = dict(cfg["model"], dtype="float32")
+    ex = batch_to_device(batch, device)
+    runs = []
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for plain in (False, True):
+            model = build_model(cfg32, device=device, generator=torch.Generator().manual_seed(0), train=True)
+            opt, _ = build_optimizer(cfg, 10, list(model.parameters()))
+            scalars, _ = train_step(model, opt, ex, plain=plain)
+            runs.append((float(scalars["loss"]), {n: p.grad.clone() for n, p in model.named_parameters()}))
+            del model, opt
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    (l_k, g_k), (l_p, g_p) = runs
+    rel = {n: float((g_k[n] - g_p[n]).abs().max() / g_p[n].abs().max().clamp(min=1e-30)) for n in g_k}
+    worst = max(rel, key=rel.get)
+    rec = {"phase": "f32_train_kernels_vs_plain", "loss_kernels": l_k, "loss_plain": l_p,
+           "loss_abs_diff": abs(l_k - l_p), "max_rel_grad_diff": rel[worst], "worst_tensor": worst,
+           "tolerance": "loss within 1e-6 relative; every gradient within 1e-3 of its largest magnitude"}
+    emit(rec)
+    if abs(l_k - l_p) > 1e-6 * abs(l_p) or rel[worst] > 1e-3:
+        raise AssertionError(f"f32 train step with kernels disagrees with plain: {rec}")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; a CUDA GPU is required")
+    sys.path.insert(0, str(REPO))
+    from pillarnext_tpu_torch.data.synthetic import synthetic_batches
+    from pillarnext_tpu_torch.ops import kernels
+    from pillarnext_tpu_torch.utils.builders import build_model
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # phase 1: the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
+
+    # phase 2: build every kernel from the checkout's sources
+    t0 = time.perf_counter()
+    _, build = kernels.library()
+    ptxas = [ln.strip() for ln in build["ptxas"].splitlines() if "registers" in ln or "Compiling" in ln]
+    emit({"phase": "build", "nvcc_seconds": build["seconds"],
+          "wall_seconds": time.perf_counter() - t0, "ptxas": ptxas})
+
+    cfg = load_experiment(FLAGSHIP)
+    pc_range = cfg["model"]["reader"]["pc_range"]
+    t0 = time.perf_counter()
+    batch_size = int(cfg["dataloader"]["train"]["batch_size"])
+    batches = synthetic_batches(cfg, TRAIN_STEPS, batch_size, N_POINTS, seed=0)
+    emit({"phase": "train_data", "batches": len(batches), "batch_size": batch_size,
+          "points_per_scene": N_POINTS, "max_points": int(cfg["dataloader"]["max_points"]),
+          "host_seconds": time.perf_counter() - t0})
+
+    # phase 3: each kernel vs its plain version at the main paths' shapes
+    gen = torch.Generator().manual_seed(0)
+    model = build_model(cfg["model"], device=device, generator=gen)
+    points, mask = frame(pc_range, 0, device)
+    records: dict = {}
+    train_cases = train_gather_inputs(cfg, batches[0], device)
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        slot, cap = check_pfn(model.reader, points, mask, gen, device, records)
+        check_gather(model.reader, points, mask, slot, cap, gen, device, records, train_cases)
+        del train_cases
+        pts = torch.from_numpy(batches[0]["points"]).to(device)
+        pmask = torch.from_numpy(batches[0]["points_mask"]).to(device)
+        train_cap = int(cfg["model"]["reader"]["train_pillar_capacity"])
+        train_slot = model.reader.decorate(pts, pmask, train_cap)[1]
+        check_segscan(train_slot, gen, device, records)
+        del pts, pmask, train_slot
+
+    # phase 4: the serving main path, bf16
+    frames, serve_launches = serving_path(cfg["model"], model, pc_range, device)
+
+    # phase 5: f32 serving, kernels vs plain versions on the same frame (report only)
+    cfg32 = dict(cfg["model"], dtype="float32")
     model32 = build_model(cfg32, device=device, generator=torch.Generator().manual_seed(0))
     with torch.inference_mode():
         a = model32.predict(*frames[0])
@@ -278,25 +582,41 @@ def main() -> None:
     emit({"phase": "f32_kernels_vs_plain", "valid_kernels": int(va.sum()),
           "valid_plain": int(vb.sum()),
           "matched_fraction": matched / max(int(va.sum()), int(vb.sum()), 1)})
+    del model, model32, frames
+    torch.cuda.empty_cache()
+
+    # phase 6: the training main path, bf16, B = 4, through the Trainer
+    # (its checkpoint goes to a directory of the checkout that is removed)
+    with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
+        train_model, train_launches = train_path(cfg, batches, device, work_dir)
+    del train_model
+    torch.cuda.empty_cache()
+
+    # phase 7: f32 train step, kernels vs plain versions
+    f32_train_kernels_vs_plain(cfg, batches[0], device)
+
+    def line(name, route, source, replaces, launches):
+        rec = records[name]
+        return {"name": name, "route": route, "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
 
     kernels_line = [
-        {"name": "pfn_two_layer", "route": "cuda",
-         "source": "pillarnext_tpu_torch/csrc/pfn.cu",
-         "replaces": "pillarnext_tpu/ops/pallas_pfn.py:93",
-         "launches": launches["pfn_two_layer"],
-         "max_abs_err": records["pfn_two_layer"]["max_abs_err"],
-         "ms": records["pfn_two_layer"]["ms"], "plain_ms": records["pfn_two_layer"]["plain_ms"]},
-        {"name": "monotone_row_gather", "route": "cuda",
-         "source": "pillarnext_tpu_torch/csrc/gather.cu",
-         "replaces": "pillarnext_tpu/ops/pallas_gather.py:60",
-         "launches": launches["monotone_row_gather"],
-         "max_abs_err": records["monotone_row_gather"]["max_abs_err"],
-         "ms": records["monotone_row_gather"]["ms"],
-         "plain_ms": records["monotone_row_gather"]["plain_ms"]},
+        line("pfn_two_layer", "cuda", "pillarnext_tpu_torch/csrc/pfn.cu",
+             "pillarnext_tpu/ops/pallas_pfn.py:93", serve_launches["pfn_two_layer"]),
+        line("monotone_row_gather", "cuda", "pillarnext_tpu_torch/csrc/gather.cu",
+             "pillarnext_tpu/ops/pallas_gather.py:60", serve_launches["monotone_row_gather"]),
+        line("sorted_segment_bcast", "cuda", "pillarnext_tpu_torch/csrc/segscan.cu",
+             "pillarnext_tpu/ops/pallas_segscan.py:124", train_launches["sorted_segment_bcast"]),
     ]
-    jax_modules = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
-    if jax_modules:
-        raise AssertionError(f"the port imported JAX: {jax_modules[:5]}")
+    foreign = sorted(
+        m for m in sys.modules
+        if m.split(".")[0].startswith(("jax", "flax")) or m.split(".")[0] == "pillarnext_tpu"
+    )
+    if foreign:
+        raise AssertionError(f"the port imported JAX or the JAX package: {foreign[:5]}")
+    print(smi, flush=True)
     emit({"kernels": kernels_line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,9 +1,11 @@
 """Rotated BEV box geometry on tensors.
 
 Counterpart of pillarnext_tpu/core/jax_box_ops.py: the branch-free
-boundary-integral overlap (:154-222) and ``boxes_iou_bev`` (:275).  Every op
-is elementwise over broadcast shapes, so a batch of IoU matrices is one
-call.  Box convention: [x, y, z, dx, dy, dz, yaw], yaw CCW around +z.
+boundary-integral overlap (:154-222), ``boxes_iou_bev`` (:275), and the
+training losses' ``boxes_aligned_iou3d`` (:263) and
+``bbox3d_overlaps_diou`` (:284).  Every op is elementwise over broadcast
+shapes, so a batch of IoU matrices is one call.  Box convention:
+[x, y, z, dx, dy, dz, yaw], yaw CCW around +z.
 """
 
 from __future__ import annotations
@@ -88,3 +90,51 @@ def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     sa = (boxes_a[..., 3] * boxes_a[..., 4])[..., :, None]
     sb = (boxes_b[..., 3] * boxes_b[..., 4])[..., None, :]
     return inter / torch.clamp(sa + sb - inter, min=1e-8)
+
+
+def _height_overlap(za, ha, zb, hb):
+    top = torch.minimum(za + ha / 2, zb + hb / 2)
+    bot = torch.maximum(za - ha / 2, zb - hb / 2)
+    return torch.clamp(top - bot, min=0.0)
+
+
+def boxes_aligned_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """(N, 7) x (N, 7) -> (N,) row-aligned rotated 3-D IoU (the IoU head's
+    training target)."""
+    bev = overlap_core(*_comps(boxes_a), *_comps(boxes_b))
+    hov = _height_overlap(boxes_a[:, 2], boxes_a[:, 5], boxes_b[:, 2], boxes_b[:, 5])
+    inter = bev * hov
+    vol_a = boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5]
+    vol_b = boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5]
+    return inter / torch.clamp(vol_a + vol_b - inter, min=1e-6)
+
+
+def bbox3d_overlaps_diou(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """(N, 7) x (N, 7) -> (N,) row-aligned axis-aligned DIoU: yaw is
+    ignored, the BEV extent is the unrotated (dx, dy) rectangle, the penalty
+    is the centre distance over the enclosing box's diagonal."""
+    half_p = pred[:, 3:5] / 2
+    half_g = gt[:, 3:5] / 2
+    p_min, p_max = pred[:, :2] - half_p, pred[:, :2] + half_p
+    g_min, g_max = gt[:, :2] - half_g, gt[:, :2] + half_g
+
+    inter_xy = torch.clamp(torch.minimum(p_max, g_max) - torch.maximum(p_min, g_min), min=0.0)
+    outer_xy = torch.clamp(torch.maximum(p_max, g_max) - torch.minimum(p_min, g_min), min=0.0)
+
+    inter_h = _height_overlap(pred[:, 2], pred[:, 5], gt[:, 2], gt[:, 5])
+    outer_h = torch.clamp(
+        torch.maximum(pred[:, 2] + pred[:, 5] / 2, gt[:, 2] + gt[:, 5] / 2)
+        - torch.minimum(pred[:, 2] - pred[:, 5] / 2, gt[:, 2] - gt[:, 5] / 2),
+        min=0.0,
+    )
+
+    vol_p = pred[:, 3] * pred[:, 4] * pred[:, 5]
+    vol_g = gt[:, 3] * gt[:, 4] * gt[:, 5]
+    vol_inter = inter_xy[:, 0] * inter_xy[:, 1] * inter_h
+    vol_union = vol_p + vol_g - vol_inter
+
+    inter_diag = torch.sum((gt[:, :3] - pred[:, :3]) ** 2, dim=-1)
+    outer_diag = outer_xy[:, 0] ** 2 + outer_xy[:, 1] ** 2 + outer_h**2
+
+    diou = vol_inter / vol_union - inter_diag / outer_diag
+    return torch.clamp(diou, min=-1.0, max=1.0)

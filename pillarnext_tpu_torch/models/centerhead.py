@@ -1,11 +1,13 @@
-"""CenterPoint head: shared conv, per-task SepHeads, decode and NMS (eval).
+"""CenterPoint head: shared conv, per-task SepHeads, decode, NMS and loss.
 
 Counterpart of ``SepHead`` / ``CenterHead`` (pillarnext_tpu/models/centerhead.py:43-157,
-:303-470, :568-782).  Maps are NHWC at the module boundary.  With the
+:303-564, :568-782).  Maps are NHWC at the module boundary.  With the
 post-processing config's ``candidate_sparse_head``, hm/reg/height[/iou]
 run dense while dim/rot/vel are evaluated only at the selected candidates,
 on zero-padded (2R+1)^2 patches of the task's deblock output — the same
-values as the dense maps at those cells.
+values as the dense maps at those cells.  Training runs every branch dense
+(batch statistics in train mode) and ``loss`` computes the per-task
+CenterPoint losses (centerhead.py:474-564).
 """
 
 from __future__ import annotations
@@ -17,7 +19,14 @@ import torch
 from torch import nn
 
 from pillarnext_tpu_torch.core import nms as nms_lib
-from pillarnext_tpu_torch.models.layers import BN_EPS_DENSE, BatchNorm, ConvTransposeBlock, conv2d
+from pillarnext_tpu_torch.models import losses
+from pillarnext_tpu_torch.models.layers import (
+    BN_EPS_DENSE,
+    BN_MOMENTUM_DENSE,
+    BatchNorm,
+    ConvTransposeBlock,
+    conv2d,
+)
 from pillarnext_tpu_torch.ops.topk import exact_top_k
 
 NEG_INF = nms_lib.NEG_INF
@@ -35,7 +44,7 @@ class MLPHead(nn.Sequential):
             layers += [
                 nn.Conv2d(in_ch if i == 0 else head_conv, head_conv, kernel_size,
                           padding=kernel_size // 2, bias=True),
-                BatchNorm(head_conv, BN_EPS_DENSE),
+                BatchNorm(head_conv, BN_EPS_DENSE, BN_MOMENTUM_DENSE),
                 nn.ReLU(),
             ]
         layers.append(nn.Conv2d(head_conv if num_conv > 1 else in_ch, out_ch, kernel_size,
@@ -106,11 +115,14 @@ class CenterHead(nn.Module):
         super().__init__()
         if merge_tasks or merge_branches:
             raise NotImplementedError("merge_tasks / merge_branches not ported yet, see ROADMAP")
-        # weight, code_weights and with_reg_iou configure the training loss
-        # (not ported yet); kept so one config builds both
+        # the training loss (CenterHead.loss)
         self.loss_weight = weight
-        self.code_weights = list(code_weights)
+        self.register_buffer("code_weights", torch.tensor(code_weights, dtype=torch.float32),
+                             persistent=False)
         self.with_reg_iou = with_reg_iou
+        self.voxel_size = None if voxel_size is None else [float(v) for v in voxel_size]
+        self.pc_range = None if pc_range is None else [float(v) for v in pc_range]
+        self.out_size_factor = None if out_size_factor is None else [int(f) for f in out_size_factor]
         self.class_names = [list(t) for t in tasks]
         self.num_classes = [len(t) for t in tasks]
         self.common_heads = {k: (int(v[0]), int(v[1])) for k, v in common_heads.items()}
@@ -118,7 +130,7 @@ class CenterHead(nn.Module):
         self.rectifier = [list(r) for r in rectifier]
         hc = share_conv_channel
         self.shared_conv = nn.Sequential(
-            nn.Conv2d(in_channels, hc, 3, padding=1, bias=True), BatchNorm(hc, BN_EPS_DENSE)
+            nn.Conv2d(in_channels, hc, 3, padding=1, bias=True), BatchNorm(hc, BN_EPS_DENSE, BN_MOMENTUM_DENSE)
         )
         seps = []
         for num_cls, stride in zip(self.num_classes, strides):
@@ -168,6 +180,63 @@ class CenterHead(nn.Module):
             )
 
         return self.predict(partials, test_cfg, drv_fn=drv_fn)
+
+    # ---------------- loss ----------------
+
+    def _decode_at_inds(self, preds, ind, task_id):
+        """[x, y, z, dx, dy, dz, yaw] (B, M, 7) decoded at flat centre
+        indices (centerhead.py:474-496)."""
+        w = preds["hm"].shape[2]
+        reg = losses.gather_feature_map(preds["reg"].float(), ind)
+        hei = losses.gather_feature_map(preds["height"].float(), ind)
+        dim = torch.exp(torch.clamp(losses.gather_feature_map(preds["dim"].float(), ind), -5.0, 5.0))
+        rot = losses.gather_feature_map(preds["rot"].float(), ind)
+        yaw = torch.atan2(rot[..., 0:1], rot[..., 1:2])
+        xs = (ind % w).float()[..., None] + reg[..., 0:1]
+        ys = (ind // w).float()[..., None] + reg[..., 1:2]
+        factor = float(self.out_size_factor[task_id])
+        xs = xs * factor * self.voxel_size[0] + self.pc_range[0]
+        ys = ys * factor * self.voxel_size[1] + self.pc_range[1]
+        return torch.cat([xs, ys, hei, dim, yaw], dim=-1)
+
+    def loss(self, example, preds_dicts):
+        """Total loss + per-task log dicts (centerhead.py:498-564).
+
+        ``example`` carries per-task lists: hm (B, H, W, C), ind / mask /
+        cat (B, M), anno_box (B, M, 10), gt_boxes (B, M, 7)."""
+        total = 0.0
+        logs = []
+        with_iou = "iou" in self.common_heads
+        for task_id, preds in enumerate(preds_dicts):
+            hm = torch.clamp(torch.sigmoid(preds["hm"].float()), 1e-4, 1 - 1e-4)
+            ind = example["ind"][task_id]
+            mask = example["mask"][task_id]
+            hm_loss = losses.fast_focal_loss(hm, example["hm"][task_id], ind, mask, example["cat"][task_id])
+            # anno order: [reg(2), height(1), dim(3), vel(2), rot(2)]
+            pred = torch.cat(
+                [losses.gather_feature_map(preds[n], ind) for n in ("reg", "height", "dim", "vel", "rot")],
+                dim=-1,
+            ).float()
+            box_loss = losses.reg_loss(pred, mask, example["anno_box"][task_id])
+            loc_loss = (box_loss * self.code_weights).sum()
+            task_loss = hm_loss + self.loss_weight * loc_loss
+            log = {"hm_loss": hm_loss, "loc_loss": loc_loss, "loc_loss_elem": box_loss,
+                   "num_positive": mask.float().sum()}
+            if with_iou or self.with_reg_iou:
+                boxes7 = self._decode_at_inds(preds, ind, task_id)
+                gt7 = example["gt_boxes"][task_id]
+                if with_iou:
+                    iou_loss = losses.iou_pred_loss(preds["iou"].float(), mask, ind, boxes7.detach(), gt7)
+                    task_loss = task_loss + iou_loss
+                    log["iou_loss"] = iou_loss
+                if self.with_reg_iou:
+                    iou_reg = losses.iou_reg_loss(boxes7, mask, gt7)
+                    task_loss = task_loss + self.loss_weight * iou_reg
+                    log["iou_reg_loss"] = iou_reg
+            log["loss"] = task_loss
+            logs.append(log)
+            total = total + task_loss
+        return total, logs
 
     def predict(self, preds_dicts, test_cfg, drv_fn=None):
         """Decode + per-class rotated NMS with fixed-size outputs

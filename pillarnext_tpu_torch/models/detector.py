@@ -1,6 +1,9 @@
 """Composition root: reader -> backbone -> neck -> head.
 
-Counterpart of ``SingleStageDetector`` (pillarnext_tpu/models/detector.py:18-52), eval.
+Counterpart of ``SingleStageDetector`` (pillarnext_tpu/models/detector.py:18-52).
+``model.train()`` selects the training forward of every submodule (batch
+statistics, the all-sparse backbone, dense head branches); ``loss`` is the
+training step's body.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ class SingleStageDetector(nn.Module):
         tensors on the kernels' plain versions."""
         x = self.reader(points, mask, capacity=capacity, telemetry=telemetry, plain=plain)
         if self.backbone is not None:
-            x = self.backbone(x, plain=plain)
+            x = self.backbone(x, plain=plain, telemetry=telemetry)
         if self.neck is not None:
             x = self.neck(x)
         return x
@@ -43,6 +46,16 @@ class SingleStageDetector(nn.Module):
     def forward(self, points, mask, capacity=None, telemetry=None, plain=False):
         """Dense head maps, one dict per task group."""
         return self.head(self.extract_feat(points, mask, capacity, telemetry, plain))
+
+    def loss(self, example: dict, telemetry=None, plain=False):
+        """Train-mode forward + head loss -> (total loss, per-task log
+        dicts) (detector.py:37-40).  ``example`` holds ``points`` (B, N, D),
+        ``points_mask`` (B, N) and the per-task target lists of
+        data/assign.py (hm, ind, mask, cat, anno_box, gt_boxes)."""
+        if not self.training:
+            raise RuntimeError("SingleStageDetector.loss needs train mode (model.train())")
+        preds = self(example["points"], example["points_mask"], telemetry=telemetry, plain=plain)
+        return self.head.loss(example, preds)
 
     def predict(self, points, mask, capacity=None, telemetry=None, plain=False):
         """Fixed-size detections: box3d_lidar (B, D, 9), scores, label_preds,

@@ -1,12 +1,22 @@
-"""BEV ResNet backbone, eval ``leading`` path.
+"""BEV ResNet backbone: the eval ``leading`` path and the train ``all`` path.
 
-Counterpart of ``SparseResNet`` (pillarnext_tpu/models/resnet.py:445-663)
-with ``sparse_eval=True``, ``sparse_stages_eval="leading"`` and
-``masked_eval=True``: the leading stride-1 stages run as SubM convs over
+Counterpart of ``SparseResNet`` (pillarnext_tpu/models/resnet.py:445-805).
+
+Eval (``sparse_eval=True``, ``sparse_stages_eval="leading"``,
+``masked_eval=True``): the leading stride-1 stages run as SubM convs over
 the compact table (gather + matmul), the result is densified (kernel 2 on
 a CUDA tensor), and the strided stages and the 1x1 mapping run as dense
 convs re-masked to the active set after every block, the mask dilating
-like spconv's strided SparseConv.  Spconv active-set semantics are exact.
+like spconv's strided SparseConv.
+
+Train (``self.training``, ``sparse_stages_train="all"``, resnet.py:719-805):
+the whole backbone runs over compact tables — SubM stride-1 stages,
+set-dilating strided stages whose tables are sized by
+``stage_capacity_frac`` of the reader's capacity, a SubM 1x1 mapping —
+with batch statistics over the active rows, and is densified once at the
+final grid.  Each strided stage reports ``stage{i}_active`` and
+``stage{i}_overflow``.  Spconv active-set semantics are exact on both
+paths, and both read the same parameters.
 """
 
 from __future__ import annotations
@@ -17,14 +27,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+import numpy as np
+
 from pillarnext_tpu_torch.models.layers import (
     BN_EPS_SPARSE,
+    BN_MOMENTUM_SPARSE,
     BatchNorm,
     ConvBlock,
     ResidualBlock,
     conv2d,
 )
 from pillarnext_tpu_torch.ops.sparse_bev import SparseBEV
+from pillarnext_tpu_torch.ops.sparse_down import (
+    build_down_neighbor_tables,
+    downsample_active_set,
+    sparse_strided_conv,
+)
 from pillarnext_tpu_torch.ops.subm_conv import build_neighbor_table, subm_conv, subm_offsets_2d
 
 
@@ -35,19 +53,31 @@ def _subm_kernel(conv: nn.Conv2d) -> torch.Tensor:
     return conv.weight.permute(2, 3, 1, 0).reshape(kh * kw, i, o)
 
 
+def _with_dump_row(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))])
+
+
 def sparse_conv_block(block: ConvBlock, x, valid, nbr):
     """SubM conv + BN + ReLU over the compact table (resnet.py:111-131)."""
-    table = torch.cat([x, x.new_zeros((1, x.shape[1]))])
-    y = block.norm(subm_conv(table, nbr, _subm_kernel(block.conv)), channel_dim=-1)
+    y = subm_conv(_with_dump_row(x), nbr, _subm_kernel(block.conv))
+    y = block.norm(y, channel_dim=-1, valid=valid)
     return torch.where(valid[:, None], torch.relu(y), 0.0)
 
 
 def sparse_residual_block(block: ResidualBlock, x, valid, nbr):
     """SubM residual block over the compact table (resnet.py:134-157)."""
     y = sparse_conv_block(block.block1, x, valid, nbr)
-    table = torch.cat([y, y.new_zeros((1, y.shape[1]))])
-    y = block.norm2(subm_conv(table, nbr, _subm_kernel(block.conv2)), channel_dim=-1)
+    y = subm_conv(_with_dump_row(y), nbr, _subm_kernel(block.conv2))
+    y = block.norm2(y, channel_dim=-1, valid=valid)
     return torch.where(valid[:, None], torch.relu(y + x), 0.0)
+
+
+def sparse_strided_block(block: ConvBlock, x, out_valid, nbr_fwd, nbr_rev):
+    """Strided sparse conv + BN + ReLU into the dilated output table
+    (resnet.py:160-180)."""
+    y = sparse_strided_conv(_with_dump_row(x), nbr_fwd, nbr_rev, _subm_kernel(block.conv))
+    y = block.norm(y, channel_dim=-1, valid=out_valid)
+    return torch.where(out_valid[:, None], torch.relu(y), 0.0)
 
 
 class SparseResNet(nn.Module):
@@ -66,13 +96,14 @@ class SparseResNet(nn.Module):
         sparse_eval: bool = False,
         masked_eval: bool = True,
         sparse_stages_eval: str = "leading",
+        sparse_stages_train: str = "all",
         packed_downsample: bool = False,
+        tile_stride1: bool = False,
+        force_dense_train: bool = False,
         stage_capacity_frac: Sequence[float] = (1.0, 1.0, 0.5, 0.25),
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
-        # stage_capacity_frac sizes the train path's per-stage tables (not
-        # ported yet); the eval path here has no per-stage tables
         if not sparse_eval:
             raise NotImplementedError("sparse_eval=false not ported yet, see ROADMAP")
         if not masked_eval:
@@ -83,6 +114,14 @@ class SparseResNet(nn.Module):
             )
         if packed_downsample:
             raise NotImplementedError("packed_downsample not ported yet, see ROADMAP")
+        if sparse_stages_train != "all":
+            raise NotImplementedError(
+                f"sparse_stages_train={sparse_stages_train!r} not ported yet, see ROADMAP"
+            )
+        if tile_stride1:
+            raise NotImplementedError("tile_stride1 not ported yet, see ROADMAP")
+        if force_dense_train:
+            raise NotImplementedError("force_dense_train not ported yet, see ROADMAP")
         self.layer_nums = tuple(int(n) for n in layer_nums)
         self.strides = tuple(int(s) for s in ds_layer_strides)
         self.kernel_size = tuple(int(k) for k in kernel_size)
@@ -94,19 +133,27 @@ class SparseResNet(nn.Module):
         in_ch = num_input_features
         for i, n_blocks in enumerate(self.layer_nums):
             ch, k = int(ds_num_filters[i]), self.kernel_size[i]
-            stage = [ConvBlock(in_ch, ch, k, stride=self.strides[i], eps=BN_EPS_SPARSE)]
+            stage = [ConvBlock(in_ch, ch, k, stride=self.strides[i], eps=BN_EPS_SPARSE,
+                               momentum=BN_MOMENTUM_SPARSE)]
             stage += [ResidualBlock(ch, k, eps=BN_EPS_SPARSE) for _ in range(n_blocks)]
             blocks.append(nn.ModuleList(stage))
             in_ch = ch
         self.blocks = nn.ModuleList(blocks)
         # reference schema: mapping.0 = conv, mapping.1 = BN
         self.mapping = nn.Sequential(
-            nn.Conv2d(in_ch, out_channels, 1, bias=False), BatchNorm(out_channels, BN_EPS_SPARSE)
+            nn.Conv2d(in_ch, out_channels, 1, bias=False),
+            BatchNorm(out_channels, BN_EPS_SPARSE, BN_MOMENTUM_SPARSE),
         )
 
-    def forward(self, sb: SparseBEV, plain: bool = False) -> torch.Tensor:
+    def forward(self, sb: SparseBEV, plain: bool = False, telemetry=None) -> torch.Tensor:
+        """SparseBEV -> (B, H', W', out_channels) NHWC.  ``telemetry`` (a
+        dict) receives the strided stages' active and overflow counts in
+        training; ``plain`` keeps CUDA tensors on the kernels' plain
+        versions."""
         if not isinstance(sb, SparseBEV):
             raise TypeError("SparseResNet takes the reader's SparseBEV (reader.output='sparse')")
+        if self.training:
+            return self._all_sparse(sb, plain, {} if telemetry is None else telemetry)
         feats = sb.table[:-1]
         if self.n_sparse:
             nbr = build_neighbor_table(
@@ -132,3 +179,37 @@ class SparseResNet(nn.Module):
                 x = block(x, m)
         x = torch.relu(self.mapping[1](conv2d(x, self.mapping[0]))) * mask.to(x.dtype)
         return x.permute(0, 2, 3, 1)
+
+    def _all_sparse(self, sb: SparseBEV, plain: bool, telemetry: dict) -> torch.Tensor:
+        """The whole backbone over compact tables (resnet.py:719-805)."""
+        batch, spatial = sb.batch, sb.spatial
+        table, valid, sod, slot_id = sb.table[:-1], sb.valid, sb.slot_of_dense, sb.slot_id
+        cap0 = sb.capacity
+        for i, stage in enumerate(self.blocks):
+            k, s = self.kernel_size[i], self.strides[i]
+            if s == 1:
+                nbr = build_neighbor_table(sod, slot_id, spatial, subm_offsets_2d(k), valid.shape[0])
+                table = sparse_conv_block(stage[0], table, valid, nbr)
+            else:
+                out_hw = -(-spatial[0] // s) * -(-spatial[1] // s)
+                cap_out = min(max(int(cap0 * float(self.stage_capacity_frac[i])), 4096), batch * out_hw)
+                out_slot_id, out_sod, out_valid, out_sp, n_out = downsample_active_set(
+                    sod, valid.shape[0], batch, spatial, (k, k), (s, s), cap_out
+                )
+                telemetry[f"stage{i}_active"] = n_out
+                telemetry[f"stage{i}_overflow"] = torch.clamp(n_out - cap_out, min=0)
+                nbr_fwd, nbr_rev = build_down_neighbor_tables(
+                    sod, out_slot_id, slot_id, batch, spatial, (k, k), (s, s)
+                )
+                nbr = build_neighbor_table(out_sod, out_slot_id, out_sp, subm_offsets_2d(k), cap_out)
+                table = sparse_strided_block(stage[0], table, out_valid, nbr_fwd, nbr_rev)
+                valid, sod, slot_id, spatial = out_valid, out_sod, out_slot_id, out_sp
+            for block in stage[1:]:
+                table = sparse_residual_block(block, table, valid, nbr)
+        # 1x1 mapping = SubM conv whose only tap is the site itself
+        nbr1 = build_neighbor_table(sod, slot_id, spatial, np.zeros((1, 2), np.int32), valid.shape[0])
+        y = subm_conv(_with_dump_row(table), nbr1, _subm_kernel(self.mapping[0]))
+        y = self.mapping[1](y, channel_dim=-1, valid=valid)
+        table = torch.where(valid[:, None], torch.relu(y), 0.0)
+        out = SparseBEV(_with_dump_row(table), valid, sod, slot_id, batch, tuple(spatial))
+        return out.to_dense(plain=plain)

@@ -1,10 +1,11 @@
 """Build and load the package's hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` into one shared library with a plain
-C interface and loaded with ``ctypes`` — no PyTorch headers, so a build
-takes seconds.  The build happens on first use, from the sources in the
-package only, into ``pillarnext_tpu_torch/_build/``; a library is named
-by the hash of the sources and flags, so an edited source rebuilds.
+Each source is compiled by its own ``nvcc`` process, all started together,
+and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes`` — no PyTorch headers, so a build takes
+seconds.  The build happens on first use, from the sources in the package
+only, into ``pillarnext_tpu_torch/_build/``; a library is named by the hash
+of the sources and flags, so an edited source rebuilds.
 
 Nothing here runs at import time: CPU-only installs import every module.
 """
@@ -28,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -39,6 +40,10 @@ _SIGNATURES = {
     "pnx_pfn_two_layer": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # table, idx, out, m, r, row_bytes, stream
     "pnx_row_gather": (_P, _P, _P, _L, _L, _L, _P),
+    # x, seg, ent_val, ent_seg, n, c, tile, dtype, op, stream
+    "pnx_segscan_ends": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # x, seg, full, out, n, c, tile, dtype, op, stream
+    "pnx_segscan_write": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
 }
 
 
@@ -75,23 +80,35 @@ def library() -> tuple[ctypes.CDLL, dict]:
     record = {"path": str(so), "seconds": 0.0, "ptxas": ""}
     if not so.exists():
         t0 = time.perf_counter()
-        # build beside the target and rename: concurrent builds never load
-        # a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
+        # build in a private directory beside the target and rename:
+        # concurrent builds never load a half-written library
+        tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR))
         try:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            nvcc = _nvcc()
+            objs = [tmp / f"{src.stem}.o" for src in _sources()]
+            procs = [
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 )
-            os.replace(tmp, so)
+                for src, obj in zip(_sources(), objs)
+            ]
+            outs = [(p, *p.communicate()) for p in procs]
+            for p, out, err in outs:
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({p.returncode}):\n{out}\n{err}")
+            lib_tmp = tmp / "lib.so"
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(lib_tmp), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+            os.replace(lib_tmp, so)
         finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            shutil.rmtree(tmp, ignore_errors=True)
         record["seconds"] = time.perf_counter() - t0
-        record["ptxas"] = proc.stderr
+        record["ptxas"] = "".join(err for _, _, err in outs)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -32,6 +32,6 @@ class SparseBEV:
         return dataclasses.replace(self, table=features)
 
     def to_dense(self, plain: bool = False) -> torch.Tensor:
-        """(B, H, W, C) through one row gather."""
-        dense = densify(self.table, self.slot_of_dense, plain=plain)
+        """(B, H, W, C) through one row gather (a row gather backward)."""
+        dense = densify(self.table, self.slot_of_dense, self.slot_id, plain=plain)
         return dense.reshape(self.batch, *self.spatial, self.table.shape[-1])

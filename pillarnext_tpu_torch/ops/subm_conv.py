@@ -1,10 +1,17 @@
-"""Submanifold sparse convolution as gather + matmul (forward only).
+"""Submanifold sparse convolution as gather + matmul.
 
-Counterpart of pillarnext_tpu/ops/subm_conv.py:38-208.  Active sites live
+Counterpart of pillarnext_tpu/ops/subm_conv.py:38-283.  Active sites live
 in a compact table ``(cap + 1, C)`` whose last row is zero; a ``(cap, K)``
 neighbour table holds each tap's slot (``cap`` when inactive), so
 
     y[s] = concat_k x[nbr[s, k]] @ W        W: (K * Cin, Cout)
+
+The backward is the JAX custom VJP's shared gather (subm_conv.py:212-280):
+the active set is closed under mirroring (``nbr[j, k] = i`` iff
+``nbr[i, K-1-k] = j``), so one gather of the cotangent ``H[:, m] =
+g[nbr[:, m]]`` gives both ``dx[i] = sum_m H[i, m] @ W[K-1-m]^T`` and
+``dW[k] = x^T @ H[:, K-1-k]`` (f32 accumulation), instead of the
+scatter-add that autograd of the gather would emit.
 """
 
 from __future__ import annotations
@@ -63,18 +70,38 @@ def build_neighbor_table(
     return torch.stack(nbrs, dim=-1)
 
 
+class _SubMConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, nbr, kernel):
+        cap, k = nbr.shape
+        cin = table.shape[1]
+        ctx.save_for_backward(table, nbr, kernel)
+        x = table.index_select(0, nbr.reshape(-1).long()).reshape(cap, k * cin)
+        return x @ kernel.reshape(k * cin, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, nbr, kernel = ctx.saved_tensors
+        cap, k = nbr.shape
+        cin, cout = kernel.shape[1], kernel.shape[2]
+        g_pad = torch.cat([g, g.new_zeros((1, cout))])
+        h = g_pad.index_select(0, nbr.reshape(-1).long()).reshape(cap, k * cout)
+        # tap m of h pairs with the mirrored tap K-1-m of the kernel
+        w_t = kernel.flip(0).transpose(1, 2).reshape(k * cout, cin).to(g.dtype)
+        dx = torch.cat([h @ w_t, g.new_zeros((1, cin))])
+        dk = (table[:cap].t() @ h).reshape(cin, k, cout).flip(1).permute(1, 0, 2)
+        return dx.to(table.dtype), None, dk.to(kernel.dtype)
+
+
 def subm_conv(table: torch.Tensor, nbr: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """SubM conv over a compact table.
 
     Args:
         table: (cap + 1, Cin); row ``cap`` must be zero.
         nbr: (cap, K) neighbour slots.
-        kernel: (K, Cin, Cout).
+        kernel: (K, Cin, Cout), cast to the table's dtype.
 
     Returns:
         (cap, Cout).
     """
-    cap, k = nbr.shape
-    cin = table.shape[1]
-    x = table.index_select(0, nbr.reshape(-1).long()).reshape(cap, k * cin)
-    return x @ kernel.reshape(k * cin, -1).to(table.dtype)
+    return _SubMConv.apply(table, nbr, kernel.to(table.dtype))

@@ -40,12 +40,11 @@ class VoxelGrid(NamedTuple):
 
 def pillar_coords(grid: VoxelGrid, xyz: torch.Tensor, valid: torch.Tensor):
     """(px, py) int32 pillar coords (clamped) and validity (input mask AND
-    in range in x/y) for (N, 3) points."""
-    vs = torch.tensor(grid.voxel_size, dtype=xyz.dtype, device=xyz.device)
-    origin = torch.tensor(grid.pc_range[:3], dtype=xyz.dtype, device=xyz.device)
-    f = (xyz - origin) / vs
-    px = torch.floor(f[:, 0]).to(torch.int32)
-    py = torch.floor(f[:, 1]).to(torch.int32)
+    in range in x/y) for (N, 3) points.  The grid's constants enter as
+    Python scalars (the same f32 arithmetic as constant tensors), so no
+    host-to-device copy waits for the card."""
+    px = torch.floor((xyz[:, 0] - grid.pc_range[0]) / grid.voxel_size[0]).to(torch.int32)
+    py = torch.floor((xyz[:, 1] - grid.pc_range[1]) / grid.voxel_size[1]).to(torch.int32)
     in_range = (px >= 0) & (px < grid.size_x) & (py >= 0) & (py < grid.size_y)
     valid = valid & in_range
     return px.clamp(0, grid.size_x - 1), py.clamp(0, grid.size_y - 1), valid

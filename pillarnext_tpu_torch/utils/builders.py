@@ -1,6 +1,9 @@
-"""Config -> the port's eval model.
+"""Config -> the port's model and optimizer.
 
-Counterpart of ``build_model`` (pillarnext_tpu/utils/builders.py:38-94).
+Counterpart of ``build_model`` / ``build_optimizer``
+(pillarnext_tpu/utils/builders.py:38-94, :125-141).  The card comes first:
+both build on ``cuda:0`` unless the caller passes ``device="cpu"``, and
+without a card that default raises instead of falling back to the CPU.
 """
 
 from __future__ import annotations
@@ -9,29 +12,47 @@ import copy
 
 import torch
 
-from pillarnext_tpu.utils.config import instantiate
+from pillarnext_tpu_torch.utils.config import instantiate
 from pillarnext_tpu_torch.utils.registry import PORT_REGISTRY, check_targets
 from pillarnext_tpu_torch.utils.weights import init_random
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": None, None: None}
 
 
-def build_model(model_cfg: dict, device=None, generator: torch.Generator | None = None):
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for ``device``; a CUDA device without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device} requested but torch.cuda.is_available() is false; "
+                "pass device='cpu' to run on the CPU"
+            )
+        device = torch.device("cuda", device.index if device.index is not None else 0)
+    return device
+
+
+def build_model(model_cfg: dict, device="cuda:0", generator: torch.Generator | None = None,
+                train: bool = False):
     """Instantiate the detector from the resolved ``cfg["model"]`` dict.
 
     ``model.dtype`` ('bfloat16' default, or 'float32') is the activation
     dtype of every submodule; parameters, BN statistics and decode/NMS stay
-    float32.  ``sync_batchnorm`` is dropped (training is not ported).  A
-    pillar reader feeding a SparseResNet that opens with stride 1 emits its
-    compact table and the backbone runs that stage sparse (the reference's
-    sparse path).  With ``generator`` the parameters are drawn from it
+    float32.  ``sync_batchnorm`` is dropped (one card; DDP is ROADMAP
+    work).  A pillar reader feeding a SparseResNet that opens with stride 1
+    emits its compact table and the backbone runs sparse (the reference's
+    sparse path).  ``train=True`` gives the reader the config's
+    ``train_pillar_capacity`` for its training forward (serving keeps
+    ``pillar_capacity``) and returns the model in train mode; otherwise in
+    eval mode.  With ``generator`` the parameters are drawn from it
     (utils/weights.py: init_random); otherwise load weights afterwards.
-    Returns the model in eval mode on ``device``.
     """
+    device = resolve_device(device)
     cfg = copy.deepcopy(model_cfg)
     cfg.pop("sync_batchnorm", None)
+    train_cap = None
     if isinstance(cfg.get("reader"), dict):
-        cfg["reader"].pop("train_pillar_capacity", None)
+        train_cap = cfg["reader"].pop("train_pillar_capacity", None)
     dtype_name = cfg.pop("dtype", "bfloat16")
     if dtype_name not in DTYPES:
         raise ValueError(f"model.dtype must be bfloat16 or float32, got {dtype_name!r}")
@@ -53,6 +74,27 @@ def build_model(model_cfg: dict, device=None, generator: torch.Generator | None 
         bb.setdefault("sparse_eval", True)
     check_targets(cfg)
     model = instantiate(cfg, registry=PORT_REGISTRY)
+    if train and train_cap:
+        model.reader.train_pillar_capacity = int(train_cap)
     if generator is not None:
         init_random(model, generator)
-    return model.to(device).eval()
+    return model.to(device).train(train)
+
+
+def build_optimizer(cfg: dict, steps_per_epoch: int, params):
+    """(AdamW, schedule) over ``params`` from the optimizer / scheduler /
+    trainer config groups."""
+    from pillarnext_tpu_torch.train.train_state import make_optimizer
+
+    sched, opt = cfg["scheduler"], cfg["optimizer"]
+    total_steps = int(sched["epochs"]) * int(steps_per_epoch)
+    return make_optimizer(
+        params,
+        max_lr=float(sched["max_lr"]),
+        total_steps=max(total_steps, 1),
+        betas=tuple(opt.get("betas", (0.9, 0.99))),
+        weight_decay=float(opt.get("weight_decay", 0.01)),
+        div_factor=float(sched.get("div_factor", 10.0)),
+        pct_start=float(sched.get("pct_start", 0.4)),
+        clip_grad_val=float(cfg["trainer"].get("clip_grad_val", 0.0)),
+    )

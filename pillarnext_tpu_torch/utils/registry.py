@@ -1,12 +1,10 @@
 """Config targets -> the port's torch classes.
 
 Counterpart of pillarnext_tpu/utils/registry.py:27-74.  ``PORT_REGISTRY``
-maps the JAX package's ``pillarnext_tpu.*`` target names and the
-reference's ``det3d.*`` aliases: the ported ones to torch classes, every
-other one to a builder that raises ``NotImplementedError``.  Handing it to
-``pillarnext_tpu.utils.config.instantiate(..., registry=PORT_REGISTRY)``
-resolves every known target here, so the JAX registry (and flax) is never
-imported.
+maps the target names of the YAML tree (``pillarnext_tpu.*``, and the
+reference's ``det3d.*`` aliases) to the port's classes, and every target
+not ported yet to a builder that raises ``NotImplementedError``.  The
+port's ``utils/config.instantiate`` resolves targets only here.
 """
 
 from __future__ import annotations
@@ -14,6 +12,7 @@ from __future__ import annotations
 from typing import Callable
 
 from pillarnext_tpu_torch import models
+from pillarnext_tpu_torch.data.assign import AssignLabel
 
 _PORTED = {
     "pillarnext_tpu.models.SingleStageDetector": models.SingleStageDetector,
@@ -21,12 +20,12 @@ _PORTED = {
     "pillarnext_tpu.models.SparseResNet": models.SparseResNet,
     "pillarnext_tpu.models.ASPPNeck": models.ASPPNeck,
     "pillarnext_tpu.models.CenterHead": models.CenterHead,
+    "pillarnext_tpu.data.AssignLabel": AssignLabel,
 }
 _NOT_PORTED = (
     "pillarnext_tpu.models.VoxelFeatureNet",
     "pillarnext_tpu.models.MVFFeatureNet",
     "pillarnext_tpu.models.SparseResNet3D",
-    "pillarnext_tpu.data.AssignLabel",
     "pillarnext_tpu.data.NuScenesDataset",
     "pillarnext_tpu.data.WaymoDataset",
     "pillarnext_tpu.data.DataBaseSampler",

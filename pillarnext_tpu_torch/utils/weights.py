@@ -1,9 +1,9 @@
 """Weights for the port: seeded random initialisation and the JAX bridge.
 
 The bridge carries the JAX package's ``{params, batch_stats}`` (numpy
-arrays) into the port's ``state_dict`` through the numpy-only
-``pillarnext_tpu.utils.torch_import.export_pillarnext``, which writes the
-reference checkpoint schema the port's modules use.
+arrays) into the port's ``state_dict`` through the port's numpy-only
+``utils/torch_import.export_pillarnext``, which writes the reference
+checkpoint schema the port's modules use.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from pillarnext_tpu_torch.models.layers import BatchNorm
+from pillarnext_tpu_torch.utils.torch_import import export_pillarnext
 
 
 @torch.no_grad()
@@ -49,8 +50,6 @@ def init_random(model: nn.Module, generator: torch.Generator) -> None:
 def state_dict_from_jax(model: nn.Module, params, batch_stats) -> dict[str, torch.Tensor]:
     """The port's state_dict for a flagship-structured detector from JAX
     ``params`` / ``batch_stats`` trees of numpy-convertible arrays."""
-    from pillarnext_tpu.utils.torch_import import export_pillarnext
-
     head = model.head
     sd = export_pillarnext(
         params,

@@ -11,8 +11,11 @@ machine need not have JAX.)
 
 They cover widths and dtypes the flagship smoke test (chip_smoke.py) does
 not: every per-lane channel count of kernel 1, row sizes that are not a
-multiple of 16 bytes for kernel 2, empty inputs and the overflow slot, and
-a narrowed flagship whose detections on the card must match the CPU's.
+multiple of 16 bytes for kernel 2, odd row counts, narrow and wide
+channels, one huge segment and empty input for kernel 3 (and its
+gradient), empty inputs and the overflow slot, a narrowed flagship whose
+detections on the card must match the CPU's, and one narrowed f32 train
+step on the card against the same step on the CPU.
 """
 
 from __future__ import annotations
@@ -23,6 +26,11 @@ import torch
 
 from pillarnext_tpu_torch.ops.gather import monotone_row_gather, monotone_row_gather_plain
 from pillarnext_tpu_torch.ops.pfn import pfn_two_layer, pfn_two_layer_plain
+from pillarnext_tpu_torch.ops.segscan import (
+    pillar_max_broadcast,
+    sorted_segment_bcast,
+    sorted_segment_bcast_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -114,9 +122,9 @@ def test_small_flagship_gpu_matches_cpu(device):
     CPU, at the bars of tests/test_detection_parity.py."""
     from pathlib import Path
 
-    from pillarnext_tpu.utils.config import load_experiment
-    from pillarnext_tpu.utils.synth import lidar_like_points
     from pillarnext_tpu_torch.utils.builders import build_model
+    from pillarnext_tpu_torch.utils.config import load_experiment
+    from pillarnext_tpu_torch.utils.synth import lidar_like_points
 
     torch.backends.cudnn.allow_tf32 = False
     pc = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
@@ -131,7 +139,7 @@ def test_small_flagship_gpu_matches_cpu(device):
         "+model.backbone.out_channels=32", "model.neck.in_channels=32",
         "model.head.in_channels=32", "+model.head.share_conv_channel=32", "model.dtype=float32",
     ])["model"]
-    model = build_model(cfg, generator=torch.Generator().manual_seed(0))
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     pts, mask = lidar_like_points(2, 3000, pc, seed=0)
     pts, mask = torch.from_numpy(pts), torch.from_numpy(mask)
     with torch.inference_mode():
@@ -155,3 +163,112 @@ def test_small_flagship_gpu_matches_cpu(device):
             got["box3d_lidar"][i][gv].numpy()[go], want["box3d_lidar"][i][wv].numpy()[wo],
             atol=2e-2, rtol=1e-3,
         )
+
+
+def _sorted_segments(n, huge, seed):
+    """Sorted int32 segment ids: runs of ~5 rows, the last ``huge`` rows
+    one segment (the dump slot of masked points)."""
+    g = torch.Generator().manual_seed(seed)
+    real = n - huge
+    seg = torch.sort(torch.randint(0, max(real // 5, 1), (real,), generator=g)).values
+    return torch.cat([seg, torch.full((huge,), max(real // 5, 1) + 3)]).to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("reduce", ["max", "sum"])
+@pytest.mark.parametrize("n,c,huge", [(1, 3, 0), (257, 32, 0), (4097, 64, 3000), (100_003, 32, 60_000),
+                                      (70_001, 3, 20)])
+def test_sorted_segment_bcast_matches_plain(device, dtype, reduce, n, c, huge):
+    seg = _sorted_segments(n, huge, seed=n + c).to(device)
+    g = torch.Generator().manual_seed(c)
+    x = (torch.randn(n, c, generator=g) * 3).to(device, dtype)
+    before = sorted_segment_bcast.launches
+    got = sorted_segment_bcast(x, seg, reduce)
+    want = sorted_segment_bcast_plain(x, seg, reduce)
+    torch.cuda.synchronize()
+    assert sorted_segment_bcast.launches == before + 1
+    assert got.shape == (n, c) and got.dtype == dtype
+    if reduce == "max":
+        assert torch.equal(got, want)
+        return
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        # f32 sums in another order: within 1e-5 of the segment's sum of |x|
+        mag = sorted_segment_bcast_plain(x.abs(), seg, "sum")
+        assert bool((err <= 1e-5 * mag).all())
+    else:
+        a, b = got.float(), want.float()
+        hi = torch.maximum(a.abs(), b.abs()).clamp(min=2.0**-9)
+        assert float(((a - b).abs() / torch.exp2(torch.floor(torch.log2(hi)) - 7)).max()) <= 1.0
+
+
+def test_sorted_segment_bcast_empty_and_bad_input(device):
+    empty = torch.zeros((0, 8), device=device)
+    before = sorted_segment_bcast.launches
+    out = sorted_segment_bcast(empty, torch.zeros((0,), dtype=torch.int32, device=device), "max")
+    assert out.shape == (0, 8) and sorted_segment_bcast.launches == before
+    x = torch.zeros(10, 4, device=device)
+    with pytest.raises(ValueError):
+        sorted_segment_bcast(x, torch.zeros(10, dtype=torch.int64, device=device), "max")
+    with pytest.raises(ValueError):
+        sorted_segment_bcast(x.half(), torch.zeros(10, dtype=torch.int32, device=device), "max")
+    with pytest.raises(ValueError):
+        sorted_segment_bcast(x, torch.zeros(10, dtype=torch.int32, device=device), "min")
+
+
+def test_pillar_max_broadcast_gradient_matches_plain(device):
+    seg = _sorted_segments(50_000, 20_000, seed=7).to(device)
+    g = torch.Generator().manual_seed(8)
+    x = torch.relu(torch.randn(50_000, 32, generator=g)).to(device).requires_grad_()
+    cot = torch.randn(50_000, 32, generator=g).to(device)
+    out = pillar_max_broadcast(x, seg)
+    out.backward(cot)
+    got = x.grad.clone()
+    x.grad = None
+    want_out = pillar_max_broadcast(x, seg, plain=True)
+    want_out.backward(cot)
+    assert torch.equal(out, want_out)
+    torch.testing.assert_close(got, x.grad, atol=1e-5 * float(x.grad.abs().max()), rtol=1e-5)
+
+
+def test_small_flagship_train_step_gpu_matches_cpu(device):
+    """One f32 train step of the narrowed flagship on the card (kernels 2
+    and 3) and on the CPU (plain versions): same loss to 1e-5, same
+    telemetry, and the step went through both kernels."""
+    from pathlib import Path
+
+    from pillarnext_tpu_torch.data.synthetic import synthetic_batches
+    from pillarnext_tpu_torch.train.train_state import train_step
+    from pillarnext_tpu_torch.train.trainer import batch_to_device
+    from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    torch.backends.cudnn.allow_tf32 = False
+    pc = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
+    flagship = (
+        Path(__file__).resolve().parent.parent
+        / "pillarnext_tpu/configs/experiments/nusc_det_pp18_aspp_iou_sp.yaml"
+    )
+    cfg = load_experiment(flagship, [
+        f"model.reader.pc_range={pc}", "model.reader.voxel_size=[0.25,0.25,8.0]",
+        "model.reader.num_filters=[16,16]", "model.reader.pillar_capacity=4096",
+        "model.backbone.ds_num_filters=[16,32,32,32]", "model.backbone.num_input_features=16",
+        "+model.backbone.out_channels=32", "model.neck.in_channels=32",
+        "model.head.in_channels=32", "+model.head.share_conv_channel=32", "model.dtype=float32",
+    ])
+    batch = synthetic_batches(cfg, 1, 2, 3000, seed=1, n_objects=4, max_points=4000)[0]
+    results = {}
+    for dev in ("cpu", device):
+        model = build_model(cfg["model"], device=dev, generator=torch.Generator().manual_seed(0), train=True)
+        opt, _ = build_optimizer(cfg, 10, list(model.parameters()))
+        launches = (monotone_row_gather.launches, sorted_segment_bcast.launches)
+        scalars, _ = train_step(model, opt, batch_to_device(batch, dev))
+        results[str(dev)] = (
+            float(scalars["loss"]),
+            {k: int(v) for k, v in scalars["telemetry"].items()},
+            (monotone_row_gather.launches - launches[0], sorted_segment_bcast.launches - launches[1]),
+        )
+    cpu, gpu = results["cpu"], results[str(device)]
+    assert gpu[0] == pytest.approx(cpu[0], rel=1e-5)
+    assert gpu[1] == cpu[1]
+    assert cpu[2] == (0, 0) and gpu[2][0] > 0 and gpu[2][1] > 0

@@ -86,7 +86,7 @@ def test_flagship_slice_matches_jax():
     )(variables, jnp.asarray(pts), jnp.asarray(mask))
     ref = {k: np.asarray(v) for k, v in ref.items()}
 
-    model = load_jax_variables(build_model(cfg), variables)
+    model = load_jax_variables(build_model(cfg, device="cpu"), variables)
     got = AdaptivePredictor(model).predict(torch.from_numpy(pts), torch.from_numpy(mask))
     got = {k: v.numpy() for k, v in got.items()}
 

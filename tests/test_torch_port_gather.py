@@ -76,9 +76,10 @@ def test_densify_matches_jax(dtype):
         np.float32,
     )
     tt = torch.from_numpy(table).to(getattr(torch, dtype))
-    got = densify(tt, torch.from_numpy(slot_of_dense))
+    sod, sid = torch.from_numpy(slot_of_dense), torch.from_numpy(slot_id)
+    got = densify(tt, sod, sid)
     np.testing.assert_array_equal(_as_numpy(got), want)
-    np.testing.assert_array_equal(_as_numpy(densify(tt, torch.from_numpy(slot_of_dense), plain=True)), want)
+    np.testing.assert_array_equal(_as_numpy(densify(tt, sod, sid, plain=True)), want)
 
 
 def test_gather_segments_zero_dump_row():

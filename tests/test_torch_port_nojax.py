@@ -1,9 +1,11 @@
-"""Import hygiene: the port runs without jax or flax.
+"""Import hygiene: the port runs without jax, flax or the JAX package.
 
 The test process itself has imported jax (tests/conftest.py), so the check
-runs in a fresh interpreter: import the port, build the small
-flagship-structured model on the CPU, run one predict, and require that
-neither ``jax`` nor ``flax`` was imported.
+runs in a fresh interpreter that imports only the port: it reads the
+flagship YAML with the port's own config loader, builds the small
+flagship-structured model on the CPU, runs one predict and one train
+step, and then requires that no module named ``jax*``, ``flax*``,
+``pillarnext_tpu`` or ``pillarnext_tpu.*`` was imported.
 """
 
 from __future__ import annotations
@@ -14,16 +16,22 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+import torch
+
 REPO = Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
 import json, sys
 import torch
 import pillarnext_tpu_torch
-from pillarnext_tpu.utils.config import load_experiment
-from pillarnext_tpu.utils.synth import lidar_like_points
+from pillarnext_tpu_torch.data.synthetic import synthetic_batches
 from pillarnext_tpu_torch.serving import AdaptivePredictor
-from pillarnext_tpu_torch.utils.builders import build_model
+from pillarnext_tpu_torch.train.train_state import train_step
+from pillarnext_tpu_torch.train.trainer import batch_to_device
+from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
+from pillarnext_tpu_torch.utils.config import load_experiment
+from pillarnext_tpu_torch.utils.synth import lidar_like_points
 
 pc = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
 cfg = load_experiment(sys.argv[1], [
@@ -33,13 +41,25 @@ cfg = load_experiment(sys.argv[1], [
     "+model.backbone.out_channels=32", "model.neck.in_channels=32",
     "model.head.in_channels=32", "+model.head.share_conv_channel=32",
 ])
-model = build_model(cfg["model"], generator=torch.Generator().manual_seed(0))
+model = build_model(cfg["model"], device="cpu", generator=torch.Generator().manual_seed(0))
 pts, mask = lidar_like_points(1, 2000, pc, seed=0)
 out = AdaptivePredictor(model).predict(torch.from_numpy(pts), torch.from_numpy(mask))
+
+train_model = build_model(cfg["model"], device="cpu", generator=torch.Generator().manual_seed(0), train=True)
+opt, _ = build_optimizer(cfg, 1, list(train_model.parameters()))
+batch = synthetic_batches(cfg, 1, 1, 2000, seed=0, n_objects=3, max_points=3000)[0]
+scalars, _ = train_step(train_model, opt, batch_to_device(batch, "cpu"))
+
+def foreign(name):
+    top = name.split(".")[0]
+    return top.startswith("jax") or top.startswith("flax") or top == "pillarnext_tpu"
+
 print(json.dumps({
     "shape": list(out["box3d_lidar"].shape),
     "finite": bool(torch.isfinite(out["box3d_lidar"]).all()),
-    "loaded": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")),
+    "loss_finite": bool(torch.isfinite(scalars["loss"])),
+    "step": opt.count,
+    "loaded": sorted(m for m in sys.modules if foreign(m)),
 }))
 """
 
@@ -55,4 +75,24 @@ def test_port_predict_imports_no_jax():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["shape"] == [1, 10 * 83, 9]
     assert result["finite"]
+    assert result["loss_finite"]
+    assert result["step"] == 1
     assert result["loaded"] == []
+
+
+def test_build_model_and_trainer_default_to_the_card():
+    """Without ``device="cpu"`` the entry points ask for ``cuda:0`` and,
+    without a card, raise instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    from pillarnext_tpu_torch.train.trainer import Trainer
+    from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    cfg = load_experiment(REPO / "pillarnext_tpu/configs/experiments/nusc_det_pp18_aspp_iou_sp.yaml")
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(cfg["model"])
+    model = build_model(cfg["model"], device="cpu")
+    opt, _ = build_optimizer(cfg, 1, list(model.parameters()))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(model, [], opt)
