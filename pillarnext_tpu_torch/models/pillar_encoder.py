@@ -22,7 +22,7 @@ from torch import nn
 from pillarnext_tpu_torch.models.layers import BN_EPS_SPARSE, BN_MOMENTUM_SPARSE, BatchNorm
 from pillarnext_tpu_torch.ops import scatter
 from pillarnext_tpu_torch.ops.compact import compactify, invert_slot_map
-from pillarnext_tpu_torch.ops.pfn import pfn_two_layer, pfn_two_layer_plain
+from pillarnext_tpu_torch.ops.pfn import pfn_kernel_params, pfn_two_layer, pfn_two_layer_plain
 from pillarnext_tpu_torch.ops.segscan import pillar_max_broadcast
 from pillarnext_tpu_torch.ops.sparse_bev import SparseBEV
 from pillarnext_tpu_torch.ops.voxelize import VoxelGrid, pillar_coords, pillar_segment_ids
@@ -90,6 +90,25 @@ class PillarFeatureNet(nn.Module):
             PFNLayer(widths[i], widths[i + 1], last_layer=(i == len(widths) - 2))
             for i in range(len(widths) - 1)
         )
+        self._pfn_params = None  # (key, eval PFN parameters as kernel 1 takes them)
+
+    def pfn_params(self, device) -> tuple[torch.Tensor, ...]:
+        """(w0, bn0, w1, bn1) of the eval PFN as kernel 1 takes them (f32,
+        contiguous, BN folded, on ``device``), kept between calls.  They are
+        rebuilt when the device or any PFN parameter or BN statistic changes
+        its storage, dtype or version (``load_state_dict``, ``.to()``, an
+        in-place update outside ``.data``)."""
+        tensors = [t for layer in self.pfn_layers for t in (*layer.parameters(), *layer.buffers())]
+        # inference tensors (a module moved under inference_mode) keep no
+        # version counter: their parameters are rebuilt on every call
+        key = None if any(t.is_inference() for t in tensors) else (
+            torch.device(device), tuple((t.data_ptr(), t._version, t.dtype) for t in tensors))
+        if key is None or self._pfn_params is None or self._pfn_params[0] != key:
+            with torch.no_grad():
+                w0, bn0 = self.pfn_layers[0].kernel_params()
+                w1, bn1 = self.pfn_layers[1].kernel_params()
+                self._pfn_params = (key, pfn_kernel_params(w0, bn0, w1, bn1, device))
+        return self._pfn_params[1]
 
     def decorate(self, points, mask, capacity: int | None = None, plain: bool = False):
         """Pillarize and decorate: (decorated features (N, df) sorted by
@@ -145,10 +164,8 @@ class PillarFeatureNet(nn.Module):
             # the dump row holds the max of overflowed valid points: zero it
             table = torch.cat([x[:-1], x.new_zeros((1, x.shape[1]))])
         else:
-            w0, bn0 = self.pfn_layers[0].kernel_params()
-            w1, bn1 = self.pfn_layers[1].kernel_params()
             pfn = pfn_two_layer_plain if plain else pfn_two_layer
-            table = pfn(feats, slot, w0, bn0, w1, bn1, cap)
+            table = pfn(feats, slot, *self.pfn_params(feats.device), cap)
         b = points.shape[0]
         slot_of_dense, occupied = invert_slot_map(slot_id, b * self.grid.num_pillars)
         sbev = SparseBEV(table, occupied, slot_of_dense, slot_id, b, self.grid.bev_shape)

@@ -36,8 +36,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # feats, bounds, w0, bn0, w1, bn1, out, cap, df, c0, c1, dtype, stream
-    "pnx_pfn_two_layer": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # feats, slot, w0, bn0, w1, bn1, out, n, cap, df, c0, c1, dtype, stream
+    "pnx_pfn_two_layer": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # c0, c1, dtype, smem_bytes (out), blocks_per_sm (out)
+    "pnx_pfn_launch_shape": (_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
     # table, idx, out, m, r, row_bytes, stream
     "pnx_row_gather": (_P, _P, _P, _L, _L, _L, _P),
     # x, seg, ent_val, ent_seg, n, c, tile, dtype, op, stream
@@ -117,12 +119,16 @@ def library() -> tuple[ctypes.CDLL, dict]:
     return lib, record
 
 
+@functools.cache
+def entry(name: str):
+    """A C entry point of the library, its argument types set."""
+    return getattr(library()[0], name)
+
+
 def launch(name: str, *args) -> None:
     """Call a kernel's C entry point on the current stream; raise on a
     launch error.  Pointers are passed as Python ints."""
-    lib, _ = library()
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, name)(*args, stream)
+    err = entry(name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with error code {err}")
 

@@ -15,6 +15,8 @@ TPU kernel does.  Row ``cap`` (the dump slot) and empty slots are 0.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from pillarnext_tpu_torch.ops import kernels
@@ -51,11 +53,14 @@ def pfn_two_layer_plain(feats, slot, w0, bn0, w1, bn1, cap: int) -> torch.Tensor
 
 def pfn_two_layer(feats, slot, w0, bn0, w1, bn1, cap: int) -> torch.Tensor:
     """The same function; CPU tensors take the plain version, CUDA tensors
-    launch ``csrc/pfn.cu``."""
+    launch ``csrc/pfn.cu``, which rounds the weights to the compute type
+    itself.  Weights that are already f32, contiguous and on the features'
+    device (``pfn_kernel_params``) go to the kernel without a copy."""
     if feats.device.type == "cpu":
         return pfn_two_layer_plain(feats, slot, w0, bn0, w1, bn1, cap)
     kernels.check_cuda_tensor(feats, "feats", FLOAT_TYPES, ndim=2)
-    if slot.device != feats.device or slot.dim() != 1 or slot.shape[0] != feats.shape[0]:
+    kernels.check_cuda_tensor(slot, "slot", (torch.int32,), ndim=1)
+    if slot.device != feats.device or slot.shape[0] != feats.shape[0]:
         raise ValueError("slot must be an (N,) tensor on the features' device")
     n, df = feats.shape
     c0 = w0.shape[1]
@@ -65,20 +70,36 @@ def pfn_two_layer(feats, slot, w0, bn0, w1, bn1, cap: int) -> torch.Tensor:
             f"weight shapes {tuple(w0.shape)} {tuple(bn0.shape)} "
             f"{tuple(w1.shape)} {tuple(bn1.shape)} do not fit df={df}"
         )
+    w0, bn0, w1, bn1 = pfn_kernel_params(w0, bn0, w1, bn1, feats.device)
+    if feats.data_ptr() % 16:
+        raise ValueError("feats must be 16-byte aligned (the kernel stages rows with 16-byte copies)")
     dt = feats.dtype
-    w0, bn0, w1, bn1 = (t.to(feats.device) for t in _round_params(dt, w0, bn0, w1, bn1))
-    # first point of every slot 0..cap (slot ascending by construction)
-    bounds = torch.searchsorted(
-        slot, torch.arange(cap + 1, device=slot.device, dtype=slot.dtype), out_int32=True
-    )
     out = torch.empty((cap + 1, c1), dtype=dt, device=feats.device)
     kernels.launch(
-        "pnx_pfn_two_layer", feats.data_ptr(), bounds.data_ptr(), w0.data_ptr(),
+        "pnx_pfn_two_layer", feats.data_ptr(), slot.data_ptr(), w0.data_ptr(),
         bn0.data_ptr(), w1.data_ptr(), bn1.data_ptr(), out.data_ptr(),
-        cap, df, c0, c1, 0 if dt == torch.float32 else 1,
+        n, cap, df, c0, c1, 0 if dt == torch.float32 else 1,
     )
     pfn_two_layer.launches += 1
     return out
+
+
+def pfn_kernel_params(w0, bn0, w1, bn1, device) -> tuple[torch.Tensor, ...]:
+    """The four parameters as the kernel takes them: f32, contiguous, on
+    ``device`` (a no-op for tensors that already are)."""
+    return tuple(t.to(device=device, dtype=torch.float32).contiguous() for t in (w0, bn0, w1, bn1))
+
+
+def pfn_launch_shape(c0: int, c1: int, dtype: torch.dtype) -> dict:
+    """Kernel 1's dynamic shared memory per block and resident blocks per
+    SM on the current CUDA device (needs the card)."""
+    smem, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    err = kernels.entry("pnx_pfn_launch_shape")(
+        c0, c1, 0 if dtype == torch.float32 else 1, ctypes.byref(smem), ctypes.byref(per_sm)
+    )
+    if err != 0:
+        raise RuntimeError(f"pnx_pfn_launch_shape failed with error code {err}")
+    return {"smem_bytes": smem.value, "blocks_per_sm": per_sm.value}
 
 
 pfn_two_layer.launches = 0

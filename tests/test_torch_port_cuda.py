@@ -10,8 +10,11 @@ the card with::
 machine need not have JAX.)
 
 They cover widths and dtypes the flagship smoke test (chip_smoke.py) does
-not: every per-lane channel count of kernel 1, row sizes that are not a
-multiple of 16 bytes for kernel 2, odd row counts, narrow and wide
+not: every padded width of kernel 1 in f32 and bf16, pillars that cross
+its 128-point windows at every offset, one pillar of 5000 points, all
+points in the dump slot, one point, a capacity far above the occupied
+slots, two launches bit for bit; row sizes of 2 to 512 bytes for kernel 2,
+a table offset by one row, odd row counts, narrow and wide
 channels, one huge segment and empty input for kernel 3 (and its
 gradient), empty inputs and the overflow slot, a narrowed flagship whose
 detections on the card must match the CPU's, and one narrowed f32 train
@@ -43,9 +46,12 @@ def device():
     return torch.device("cuda", 0)
 
 
-def _pfn_inputs(device, n, cap, df, c0, c1, dtype, seed):
+def _pfn_inputs(device, n, cap, df, c0, c1, dtype, seed, slot=None):
     g = torch.Generator().manual_seed(seed)
-    slot = torch.sort(torch.randint(0, cap + 1, (n,), generator=g)).values.to(torch.int32)
+    if slot is None:
+        slot = torch.sort(torch.randint(0, cap + 1, (n,), generator=g)).values
+    slot = torch.as_tensor(slot).to(torch.int32)
+    n = slot.shape[0]
     feats = (torch.randn(n, df, generator=g) * 5).to(dtype)
     w0 = torch.randn(df, c0, generator=g) / df**0.5
     w1 = torch.randn(2 * c0, c1, generator=g) / (2 * c0) ** 0.5
@@ -82,12 +88,82 @@ def test_pfn_two_layer_bf16_and_overflow(device):
     assert float(ulps.max()) <= 1.0
 
 
+def _assert_pfn_matches(got, want):
+    """Kernel 1's bars: the same zero rows; f32 within atol = rtol = 1e-5,
+    bf16 within 1 ulp of the larger magnitude, floored at 2^-9."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal((got == 0).all(1), (want == 0).all(1))
+    assert torch.all(got[-1] == 0)
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        a, b = got.float(), want.float()
+        hi = torch.maximum(a.abs(), b.abs()).clamp(min=2.0**-9)
+        assert float(((a - b).abs() / torch.exp2(torch.floor(torch.log2(hi)) - 7)).max()) <= 1.0
+
+
+@pytest.mark.parametrize("c0,c1", [(8, 16), (32, 64), (48, 96), (64, 128), (17, 33)])
+def test_pfn_two_layer_bf16_widths(device, c0, c1):
+    args = _pfn_inputs(device, 5000, 1500, 10, c0, c1, torch.bfloat16, seed=c0 * c1)
+    _assert_pfn_matches(pfn_two_layer(*args, 1500), pfn_two_layer_plain(*args, 1500))
+
+
+def _slot_stream(case):
+    """(ascending slots, cap) of one pillar layout."""
+    rng = np.random.default_rng(11)
+    if case == "sizes_1_to_300":
+        # every pillar size 1..300, in order and shuffled twice, so pillars
+        # start and end at every offset of the 128-point windows
+        sizes = np.concatenate([np.arange(1, 301), rng.permutation(300) + 1, rng.permutation(300) + 1])
+        return np.repeat(np.arange(len(sizes)), sizes), len(sizes) + 3
+    if case == "one_pillar_5000":
+        return np.concatenate([np.zeros(5000, np.int64), [1, 1, 2], np.full(200, 4)]), 10
+    if case == "all_dump":
+        return np.full(3000, 100), 100
+    if case == "one_point":
+        return np.array([2]), 4
+    if case == "cap_far_above":
+        return np.sort(rng.integers(0, 300, 2000)), 200_000
+    if case == "gaps_and_dump":
+        return np.sort(rng.integers(0, 1001, 1500)), 1000
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "case", ["sizes_1_to_300", "one_pillar_5000", "all_dump", "one_point", "cap_far_above", "gaps_and_dump"]
+)
+def test_pfn_two_layer_pillar_layouts(device, dtype, case):
+    slot, cap = _slot_stream(case)
+    args = _pfn_inputs(device, 0, cap, 10, 32, 64, dtype, seed=5, slot=slot)
+    before = pfn_two_layer.launches
+    got = pfn_two_layer(*args, cap)
+    want = pfn_two_layer_plain(*args, cap)
+    torch.cuda.synchronize()
+    assert pfn_two_layer.launches == before + 1
+    _assert_pfn_matches(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pfn_two_layer_deterministic(device, dtype):
+    slot, cap = _slot_stream("sizes_1_to_300")
+    args = _pfn_inputs(device, 0, cap, 10, 32, 64, dtype, seed=6, slot=slot)
+    first = pfn_two_layer(*args, cap)
+    second = pfn_two_layer(*args, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       second.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
 def test_pfn_two_layer_rejects_bad_input(device):
     feats, slot, w0, bn0, w1, bn1 = _pfn_inputs(device, 100, 50, 10, 8, 16, torch.float32, seed=4)
     with pytest.raises(ValueError):
         pfn_two_layer(feats.half(), slot, w0, bn0, w1, bn1, 50)
     with pytest.raises(ValueError):
         pfn_two_layer(feats.t(), slot, w0, bn0, w1, bn1, 50)
+    with pytest.raises(ValueError):  # the kernel stages rows with 16-byte copies
+        shifted = torch.empty(feats.numel() + 1, device=device)[1:].view_as(feats).copy_(feats)
+        pfn_two_layer(shifted, slot, w0, bn0, w1, bn1, 50)
     with pytest.raises(RuntimeError):  # c0 > 64 is outside the kernel's widths
         big = _pfn_inputs(device, 100, 50, 10, 80, 16, torch.float32, seed=5)
         pfn_two_layer(*big, 50)
@@ -99,6 +175,35 @@ def test_row_gather_bit_exact(device, dtype, m, r, c):
     rng = np.random.default_rng(m + r + c)
     table = torch.from_numpy(rng.standard_normal((r, c)).astype(np.float32)).to(device, dtype)
     idx = torch.from_numpy(rng.integers(-3, r + 3, m).astype(np.int32)).to(device)
+    before = monotone_row_gather.launches
+    got = monotone_row_gather(table, idx)
+    want = monotone_row_gather_plain(table, idx)
+    torch.cuda.synchronize()
+    assert monotone_row_gather.launches == before + (1 if m else 0)
+    assert got.shape == (m, c) and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+# (dtype, channels): rows of 2, 6, 10, 12, 20, 128 and 512 bytes
+_ROW_WIDTHS = [
+    (torch.bfloat16, 1), (torch.bfloat16, 3), (torch.bfloat16, 5), (torch.bfloat16, 6),
+    (torch.bfloat16, 10), (torch.bfloat16, 64), (torch.bfloat16, 256),
+    (torch.float32, 3), (torch.float32, 5), (torch.float32, 32), (torch.float32, 128),
+]
+
+
+@pytest.mark.parametrize("m", [0, 1, 4099, 100_003])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "table[1:]"])
+@pytest.mark.parametrize("dtype,c", _ROW_WIDTHS, ids=lambda v: str(v).replace("torch.", ""))
+def test_row_gather_row_widths(device, dtype, c, offset, m):
+    """Bit-exact at every row width, on a table offset by one row (so 16-byte
+    alignment fails for narrow rows), at row counts that are not a multiple
+    of a thread's group of rows, with indices out of range on both sides."""
+    rng = np.random.default_rng(m + c + offset)
+    r = 777
+    base = torch.from_numpy(rng.standard_normal((r + offset, c)).astype(np.float32)).to(device, dtype)
+    table = base[offset:]
+    idx = torch.from_numpy(rng.integers(-5, r + 5, m).astype(np.int32)).to(device)
     before = monotone_row_gather.launches
     got = monotone_row_gather(table, idx)
     want = monotone_row_gather_plain(table, idx)
