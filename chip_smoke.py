@@ -22,7 +22,10 @@ phase comes last so that torch.profiler has not traced the process while
 the main paths are timed (whether tracing leaves later launches slower is
 open).  ``bound_ms`` counts the bytes and operations that this run's data
 needs; the inputs stay the same from call to call, so inputs and outputs
-that fit the 50 MB L2 can beat it.
+that fit the 50 MB L2 can beat it.  Kernel 3's records also carry its
+launch shape and device launches per call, and one record gives the device
+time of ``pillar_max_broadcast`` forward and backward with kernel 3's
+share of it.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after, and fails unless every kernel of that path launched.  Every
@@ -50,6 +53,8 @@ FLAGSHIP = REPO / "pillarnext_tpu/configs/experiments/nusc_det_pp18_aspp_iou_sp.
 N_POINTS = 200_000
 TIMED_RUNS = 25
 PROFILED_CALLS = 20
+PROFILE_WINDOWS = 4
+MARKER = "spin_kernel"  # torch.cuda._sleep's kernel, launched between profiled calls
 LATENCY_FRAMES = 10
 TRAIN_STEPS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -75,39 +80,71 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
-def device_profile(fn, calls: int = PROFILED_CALLS) -> tuple[float, dict]:
-    """Device time of one call: the summed duration of every CUDA kernel,
-    copy and fill that ``calls`` calls launched, under torch.profiler, over
-    ``calls`` (after one warm-up call); and the same split by kernel name.
-    Unlike ``median_ms`` it leaves out the host time of the wrapper and of
-    the launches."""
+def split_calls(events: list) -> list:
+    """A window's device records in start order, cut at the marker kernels
+    launched between calls into one list per call; records before the
+    first marker and after the last are dropped."""
+    groups, cur = [], None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if MARKER in e.name:
+            if cur is not None:
+                groups.append(cur)
+            cur = []
+        elif cur is not None:
+            cur.append(e)
+    return groups
+
+
+def device_profile(fn, calls: int = PROFILED_CALLS, launches: int | None = None) -> dict:
+    """Device time of one call under torch.profiler: the summed duration of
+    every CUDA kernel, copy and fill that one call launched, averaged over
+    the whole calls of a window of ``calls`` (after one warm-up call); the
+    same split by kernel name; the device records of a whole call; and how
+    many calls were whole.  Unlike ``median_ms`` it leaves out the host
+    time of the wrapper and of the launches.
+
+    torch.profiler at times loses device records (on the H100: one in most
+    windows, or all of a window).  A marker kernel (``torch.cuda._sleep``)
+    launched between calls cuts the window into calls, and a call counts
+    only when it holds ``launches`` records (by default the count most
+    calls hold): a lost record drops its call, never part of one.  A
+    window with no whole call is profiled again, up to
+    ``PROFILE_WINDOWS`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                torch.cuda._sleep(1)
+                fn()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        groups = split_calls([e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA])
+        sizes = [len(g) for g in groups if g]
+        want = launches if launches is not None else max(set(sizes), key=sizes.count, default=0)
+        whole = [g for g in groups if g and len(g) == want]
+        if whole:
+            break
+    else:
+        raise AssertionError(f"torch.profiler recorded no whole call in {PROFILE_WINDOWS} windows")
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.device_time / 1e3 / calls
-    total = sum(by_name.values())
-    if total <= 0:
-        raise AssertionError("torch.profiler recorded no device time for the timed calls")
-    return total, by_name
+    for e in (e for g in whole for e in g):
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.device_time / 1e3 / len(whole)
+    return {"device_ms": sum(by_name.values()), "device_ms_by_kernel": by_name,
+            "device_launches_per_call": want, "device_whole_calls": len(whole), "device_calls": calls}
 
 
 def device_ms(fn, calls: int = PROFILED_CALLS) -> float:
-    return device_profile(fn, calls)[0]
+    return device_profile(fn, calls)["device_ms"]
 
 
-def device_fields(kernel, plain, library=None) -> dict:
-    """``device_ms`` of a kernel's wrapper, split by device kernel, and the
-    device times of its plain version and library call."""
-    total, by_name = device_profile(kernel)
-    return {"device_ms": total, "device_ms_by_kernel": by_name, "device_plain_ms": device_ms(plain),
+def device_fields(kernel, plain, library=None, launches: int | None = None) -> dict:
+    """``device_profile`` of a kernel's wrapper (whole calls hold
+    ``launches`` device records, where given), and the device times of its
+    plain version and library call."""
+    return {**device_profile(kernel, launches=launches), "device_plain_ms": device_ms(plain),
             "device_library_ms": device_ms(library) if library is not None else None}
 
 
@@ -296,8 +333,16 @@ def check_segscan(train_slot, gen, device, records):
     points, 32 channels), on the train batch's own slot stream and on a
     stream whose last segment holds half the rows (600k): max bit-exact, sum within 1e-5 of the
     segment's sum of magnitudes in f32 (sums in another order; the plain
-    version adds with atomics) and one bf16 rounding in bf16."""
-    from pillarnext_tpu_torch.ops.segscan import sorted_segment_bcast, sorted_segment_bcast_plain
+    version adds with atomics) and one bf16 rounding in bf16.  Each record
+    carries the tile kernel's launch shape and the device launches of one
+    call, as the wrapper plans them and as the profiler counted them."""
+    from pillarnext_tpu_torch.ops.segscan import (
+        device_launches,
+        segscan_launch_shape,
+        sorted_segment_bcast,
+        sorted_segment_bcast_plain,
+        vector_bytes,
+    )
 
     n = train_slot.shape[0]
     half = n // 2  # 600k rows at the train shape
@@ -332,16 +377,44 @@ def check_segscan(train_slot, gen, device, records):
                     "plain_ms": median_ms(lambda: sorted_segment_bcast_plain(x, seg, reduce)),
                     "library_ms": None,
                     **bound(n * 32 * es * 2 + n * 4, n * 32.0, dtype),
+                    "launch_shape": segscan_launch_shape(dtype, reduce, vector_bytes(x, got)),
+                    "device_launches_planned": device_launches(n),
                 }
                 if reduce == "sum" and dtype == torch.float32:
                     rec["max_err_over_magnitude"] = err_rel
                 rec.update(device_fields(lambda: sorted_segment_bcast(x, seg, reduce),
-                                         lambda: sorted_segment_bcast_plain(x, seg, reduce)))
+                                         lambda: sorted_segment_bcast_plain(x, seg, reduce),
+                                         launches=device_launches(n)))
                 emit(rec)
                 if not ok:
                     raise AssertionError(f"sorted_segment_bcast disagrees with its plain version: {rec}")
                 if case == "train_slots" and dtype == torch.bfloat16 and reduce == "max":
                     records["sorted_segment_bcast"] = rec
+    max_broadcast_record(train_slot, gen, device)
+
+
+def max_broadcast_record(seg, gen, device):
+    """Device time of ``pillar_max_broadcast`` forward + backward at the
+    train shape (bf16 rows, as the PFN's training forward gives them), and
+    kernel 3's share of it: the rest is the backward's elementwise glue."""
+    from pillarnext_tpu_torch.ops.segscan import pillar_max_broadcast
+
+    with torch.inference_mode(False), torch.enable_grad():
+        seg = seg.clone()
+        x = torch.relu(torch.randn(seg.shape[0], 32, generator=gen)).to(device, torch.bfloat16)
+        x.requires_grad_()
+        cot = torch.randn(seg.shape[0], 32, generator=gen).to(device, torch.bfloat16)
+
+        def step():
+            pillar_max_broadcast(x, seg).backward(cot)
+            x.grad = None
+
+        prof = device_profile(step)
+    by_name = prof["device_ms_by_kernel"]
+    kernel_ms = sum(v for k, v in by_name.items() if "seg_tile_kernel" in k or "seg_fill_kernel" in k)
+    emit({"phase": "pillar_max_broadcast_fwd_bwd", "shape": {"rows": seg.shape[0], "c": 32},
+          "dtype": "torch.bfloat16", **prof, "kernel3_device_ms": kernel_ms,
+          "kernel3_share": kernel_ms / prof["device_ms"]})
 
 
 def layer_breakdown(model, points, mask, capacity):
@@ -668,13 +741,13 @@ def main() -> None:
         check_segscan(train_slot, gen, device, records)
         del pts, pmask, train_slot
 
-    def line(name, route, source, replaces, launches):
+    def line(name, route, source, replaces, launches, **extra):
         rec = records[name]
         return {"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                "device_ms": rec["device_ms"], "device_library_ms": rec["device_library_ms"]}
+                "device_ms": rec["device_ms"], "device_library_ms": rec["device_library_ms"], **extra}
 
     kernels_line = [
         line("pfn_two_layer", "cuda", "pillarnext_tpu_torch/csrc/pfn.cu",
@@ -682,7 +755,9 @@ def main() -> None:
         line("monotone_row_gather", "cuda", "pillarnext_tpu_torch/csrc/gather.cu",
              "pillarnext_tpu/ops/pallas_gather.py:60", serve_launches["monotone_row_gather"]),
         line("sorted_segment_bcast", "cuda", "pillarnext_tpu_torch/csrc/segscan.cu",
-             "pillarnext_tpu/ops/pallas_segscan.py:124", train_launches["sorted_segment_bcast"]),
+             "pillarnext_tpu/ops/pallas_segscan.py:124", train_launches["sorted_segment_bcast"],
+             launches_per_train_step=train_launches["sorted_segment_bcast"] / TRAIN_STEPS,
+             device_launches_per_call=records["sorted_segment_bcast"]["device_launches_per_call"]),
     ]
     foreign = sorted(
         m for m in sys.modules

@@ -42,10 +42,12 @@ _SIGNATURES = {
     "pnx_pfn_launch_shape": (_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)),
     # table, idx, out, m, r, row_bytes, stream
     "pnx_row_gather": (_P, _P, _P, _L, _L, _L, _P),
-    # x, seg, ent_val, ent_seg, n, c, tile, dtype, op, stream
-    "pnx_segscan_ends": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
-    # x, seg, full, out, n, c, tile, dtype, op, stream
-    "pnx_segscan_write": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # x, seg, out, ent_val, ent_seg, ent_rows, n, c, tile, dtype, op, vb, stream
+    "pnx_segscan_tiles": (_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    # full, ent_rows, out, n, c, tile, dtype, vb, stream
+    "pnx_segscan_fill": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # dtype, op, vb, threads (out), smem_bytes (out), registers (out), blocks_per_sm (out)
+    "pnx_segscan_launch_shape": (_I, _I, _I, *(ctypes.POINTER(_I),) * 4),
 }
 
 

@@ -12,13 +12,16 @@ tensor takes the plain version.  ``sum`` accumulates in f32.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from pillarnext_tpu_torch.ops import kernels
 
 FLOAT_TYPES = (torch.float32, torch.bfloat16)
 REDUCTIONS = {"max": 0, "sum": 1}
-TILE = 256  # rows per warp in csrc/segscan.cu
+TILE = 4096  # rows per block of csrc/segscan.cu's tile kernel
+THREADS = 256  # threads per block (csrc/segscan.cu: kThreads)
 
 
 def _check_reduce(reduce: str) -> None:
@@ -44,27 +47,64 @@ def sorted_segment_bcast_plain(x: torch.Tensor, seg: torch.Tensor, reduce: str =
     return table.index_select(0, rank).to(x.dtype)
 
 
+def vector_bytes(x: torch.Tensor, out: torch.Tensor) -> int:
+    """The widest chunk (16, 8, 4 or 2 bytes, at least one value) that
+    divides a row of ``x`` and the addresses of ``x`` and ``out``: the
+    vector width the kernel is launched with.  One value always fits."""
+    es = x.element_size()
+    row = x.shape[1] * es
+    return next(vb for vb in (16, 8, 4, 2)
+                if vb >= es and row % vb == 0 and x.data_ptr() % vb == 0 and out.data_ptr() % vb == 0)
+
+
+def device_launches(n: int) -> int:
+    """Device launches of one kernel call on ``n`` rows: the tile kernel,
+    and for more than one tile the entries' own launches and the fill."""
+    n_tiles = -(-n // TILE)
+    return 1 if n_tiles <= 1 else 2 + device_launches(2 * n_tiles)
+
+
 def _launch(x: torch.Tensor, seg: torch.Tensor, op: int) -> torch.Tensor:
-    """The two passes of csrc/segscan.cu over ``x``; the per-tile entries
-    (f32) are resolved by the same passes, recursively."""
+    """csrc/segscan.cu over ``x``: the tile kernel writes every run inside
+    a tile and emits each tile's first and last run as f32 entries; the
+    entries are resolved by the same launches, recursively, and the fill
+    kernel writes those runs' rows from them."""
     n, c = x.shape
     n_tiles = -(-n // TILE)
     dtype = 0 if x.dtype == torch.float32 else 1
-    full = None
-    if n_tiles > 1:
-        ent_val = torch.empty((2 * n_tiles, c), dtype=torch.float32, device=x.device)
-        ent_seg = torch.empty((2 * n_tiles,), dtype=torch.int32, device=x.device)
-        kernels.launch(
-            "pnx_segscan_ends", x.data_ptr(), seg.data_ptr(), ent_val.data_ptr(),
-            ent_seg.data_ptr(), n, c, TILE, dtype, op,
-        )
-        full = _launch(ent_val, ent_seg, op)
     out = torch.empty_like(x)
-    kernels.launch(
-        "pnx_segscan_write", x.data_ptr(), seg.data_ptr(),
-        0 if full is None else full.data_ptr(), out.data_ptr(), n, c, TILE, dtype, op,
-    )
+    vb = vector_bytes(x, out)
+    if n_tiles == 1:
+        kernels.launch("pnx_segscan_tiles", x.data_ptr(), seg.data_ptr(), out.data_ptr(),
+                       0, 0, 0, n, c, TILE, dtype, op, vb)
+        return out
+    ent_val = torch.empty((2 * n_tiles, c), dtype=torch.float32, device=x.device)
+    ent_seg = torch.empty((2 * n_tiles,), dtype=torch.int32, device=x.device)
+    ent_rows = torch.empty((2 * n_tiles,), dtype=torch.int32, device=x.device)
+    kernels.launch("pnx_segscan_tiles", x.data_ptr(), seg.data_ptr(), out.data_ptr(),
+                   ent_val.data_ptr(), ent_seg.data_ptr(), ent_rows.data_ptr(),
+                   n, c, TILE, dtype, op, vb)
+    full = _launch(ent_val, ent_seg, op)
+    kernels.launch("pnx_segscan_fill", full.data_ptr(), ent_rows.data_ptr(), out.data_ptr(),
+                   n, c, TILE, dtype, vb)
     return out
+
+
+def segscan_launch_shape(dtype: torch.dtype, reduce: str, vb: int = 16) -> dict:
+    """The tile kernel's launch shape on the current CUDA device (needs the
+    card): threads per block, rows per tile, shared memory per block (all
+    static), registers per thread and resident blocks per SM."""
+    _check_reduce(reduce)
+    threads, smem, regs, per_sm = (ctypes.c_int(0) for _ in range(4))
+    err = kernels.entry("pnx_segscan_launch_shape")(
+        0 if dtype == torch.float32 else 1, REDUCTIONS[reduce], vb,
+        ctypes.byref(threads), ctypes.byref(smem), ctypes.byref(regs), ctypes.byref(per_sm),
+    )
+    if err != 0:
+        raise RuntimeError(f"pnx_segscan_launch_shape failed with error code {err}")
+    return {"threads": threads.value, "tile_rows": TILE, "static_smem_bytes": smem.value,
+            "dynamic_smem_bytes": 0, "registers": regs.value, "blocks_per_sm": per_sm.value,
+            "vector_bytes": vb}
 
 
 def sorted_segment_bcast(x: torch.Tensor, seg: torch.Tensor, reduce: str = "max") -> torch.Tensor:

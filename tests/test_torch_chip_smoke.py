@@ -1,0 +1,98 @@
+"""``chip_smoke.py``'s device timing on the CPU, with torch.profiler
+replaced by a stand-in that loses records the way the real one at times
+does on the card: the marker kernels between calls cut a window into
+calls, only whole calls are counted, and a window with none is profiled
+again."""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
+
+
+def _window(calls, lose=()):
+    """Device records of a window: a marker, then each call's (name, us)
+    records and a marker, in start order but listed shuffled; ``lose``
+    holds the indices of records to drop."""
+    names = [chip_smoke.MARKER]
+    for call in calls:
+        names += [*call, chip_smoke.MARKER]
+    records = []
+    for t, rec in enumerate(names):
+        name, us = (rec, 1.0) if rec == chip_smoke.MARKER else rec
+        records.append(SimpleNamespace(device_type=torch.autograd.DeviceType.CUDA, name=name,
+                                       device_time=us, time_range=SimpleNamespace(start=float(t))))
+    kept = [r for i, r in enumerate(records) if i not in set(lose)]
+    return kept[1::2] + kept[::2]
+
+
+@pytest.fixture
+def profiler(monkeypatch):
+    """Install a torch.profiler.profile whose successive windows hold the
+    given records (the last one repeats); returns the windows opened."""
+    import torch.profiler
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda *a: None)
+    opened = []
+
+    def install(windows):
+        class Profile:
+            def __init__(self, *args, **kwargs):
+                self.records = windows[min(len(opened), len(windows) - 1)]
+                opened.append(self)
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def events(self):
+                return self.records
+
+        monkeypatch.setattr(torch.profiler, "profile", Profile)
+        return opened
+
+    return install
+
+
+def test_device_profile_profiles_again_until_a_whole_window(profiler):
+    calls = 4
+    whole = [[("tile", 50.0), ("fill", 10.0)]] * calls
+    # every call of the second window lost its fill
+    opened = profiler([[], _window(whole, lose=(2, 5, 8, 11)), _window(whole)])
+    ran = []
+    prof = chip_smoke.device_profile(lambda: ran.append(1), calls, launches=2)
+    assert len(opened) == 3
+    assert len(ran) == 1 + 3 * calls  # one warm-up call, then each window's calls
+    assert prof["device_launches_per_call"] == 2 and prof["device_whole_calls"] == calls
+    assert prof["device_ms_by_kernel"] == {"tile": pytest.approx(0.05), "fill": pytest.approx(0.01)}
+    assert prof["device_ms"] == pytest.approx(0.06)
+
+
+def test_device_profile_counts_only_whole_calls(profiler):
+    """A lost record drops its call; a lost marker merges two calls, and
+    both drop; the rest give the device time of a whole call."""
+    calls = 6
+    window = _window([[("tile", 50.0 + i), ("fill", 10.0)] for i in range(calls)],
+                     lose=(2, 6))  # call 0's fill; the marker after call 1
+    opened = profiler([window])
+    prof = chip_smoke.device_profile(lambda: None, calls)
+    assert len(opened) == 1
+    assert prof["device_launches_per_call"] == 2 and prof["device_whole_calls"] == 3
+    assert prof["device_ms_by_kernel"] == {"tile": pytest.approx(0.054), "fill": pytest.approx(0.01)}
+
+
+def test_device_profile_fails_without_device_records(profiler):
+    opened = profiler([[]])
+    with pytest.raises(AssertionError, match="no whole call"):
+        chip_smoke.device_profile(lambda: None, 3)
+    assert len(opened) == chip_smoke.PROFILE_WINDOWS

@@ -3,7 +3,9 @@
 Inputs are made with numpy from a seed and handed to both packages.  Bars:
 
 - kernel 3's plain version (``sorted_segment_bcast``, which CPU tensors
-  take) against the Pallas kernel in interpret mode: ``max`` exactly;
+  take) against the Pallas kernel in interpret mode, on layouts of a few
+  TPU tiles and on those at the CUDA kernel's tile and thread-group
+  boundaries (``segment_layout``): ``max`` exactly;
   ``sum`` within 2^-20 of the segment's sum of magnitudes, against both the
   interpret kernel and a float64 sum (the TPU kernel forms prefix + suffix
   - x, which cancels, so a relative bar on the sum itself cannot hold);
@@ -42,9 +44,10 @@ from pillarnext_tpu_torch.models import losses
 from pillarnext_tpu_torch.models.layers import BatchNorm
 from pillarnext_tpu_torch.ops import densify, scatter, sparse_down, subm_conv
 from pillarnext_tpu_torch.ops.compact import compactify, invert_slot_map
-from pillarnext_tpu_torch.ops.segscan import pillar_max_broadcast, sorted_segment_bcast
+from pillarnext_tpu_torch.ops.segscan import TILE, device_launches, pillar_max_broadcast, sorted_segment_bcast
 from pillarnext_tpu_torch.train.train_state import AdamW, cosine_onecycle_schedule
 from pillarnext_tpu_torch.utils import synth
+from test_torch_port_cuda import SEGMENT_LAYOUTS, group_rows, segment_layout
 
 
 def _close(got, want, rtol=1e-5):
@@ -67,11 +70,17 @@ def _segments(rng, n, kind):
 # ------------------------------------------------------------------ kernel 3
 
 
-@pytest.mark.parametrize("kind", ["random", "singletons", "giant"])
+@pytest.mark.parametrize("kind", ["random", "singletons", "giant", *SEGMENT_LAYOUTS])
 def test_sorted_segment_bcast_plain_matches_pallas_interpret(kind):
-    rng = np.random.default_rng({"random": 0, "singletons": 1, "giant": 2}[kind])
-    n = 613  # three TPU tiles, a ragged last one
-    seg = _segments(rng, n, kind)
+    """The three layouts of a few TPU tiles, and the layouts at the CUDA
+    kernel's tile and thread-group boundaries (``segment_layout``)."""
+    if kind in SEGMENT_LAYOUTS:
+        seg = segment_layout(kind, group_rows(8, 4))
+        rng = np.random.default_rng(SEGMENT_LAYOUTS.index(kind))
+    else:
+        rng = np.random.default_rng({"random": 0, "singletons": 1, "giant": 2}[kind])
+        seg = _segments(rng, 613, kind)  # three TPU tiles, a ragged last one
+    n = seg.shape[0]
     x = rng.standard_normal((n, 8)).astype(np.float32)
     for reduce in ("max", "sum"):
         want = np.asarray(jax_bcast(jnp.asarray(x), jnp.asarray(seg), reduce=reduce, interpret=True))
@@ -88,6 +97,13 @@ def test_sorted_segment_bcast_plain_matches_pallas_interpret(kind):
         bar = 2.0**-20 * mag[seg]
         assert np.all(np.abs(got - exact[seg]) <= bar)
         assert np.all(np.abs(got - want) <= bar)
+
+
+def test_segscan_device_launches():
+    """One kernel call is one device launch up to a tile, three up to
+    TILE^2 / 2 rows (the train shape's 1.2M), then two more per level."""
+    assert [device_launches(n) for n in (1, TILE, TILE + 1, 1_200_000, TILE * TILE // 2)] == [1, 1, 3, 3, 3]
+    assert device_launches(TILE * TILE // 2 + 1) == 5
 
 
 def test_sorted_segment_bcast_bf16_and_empty():
