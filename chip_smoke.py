@@ -4,13 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pillarnext_tpu_torch/csrc`` (one
-``nvcc`` per source, all at once), drives the port's two main paths at
-the full width of the flagship PillarNeXt-B config
-(nusc_det_pp18_aspp_iou_sp, random weights from a seed):
+``nvcc`` per source, all at once), drives the port's main paths at full
+width, random weights from a seed:
 
-- serving: frames through the port's AdaptivePredictor, bf16, batch 1;
+- serving: frames through the port's AdaptivePredictor, bf16, batch 1, of
+  the flagship PillarNeXt-B config (nusc_det_pp18_aspp_iou_sp);
+- serving_voxel18: the same for the voxel18 config
+  (nusc_det_voxel18_aspp_iou_sp: 40 x 1344 x 1344 voxels, the fully
+  sparse 3-D ResNet, kernel 2 as its final densify), with its f32 BEV
+  held bit-identical between kernel 2 and its plain version;
 - training: the port's Trainer, bf16, batch 4 of seeded synthetic scenes
-  at the dataloader's 300000-point capacity, five steps;
+  at the dataloader's 300000-point capacity, five steps (flagship);
 
 then holds each kernel against its plain PyTorch version at the shapes
 those paths give it.  Each kernel record carries two times: ``ms``, the
@@ -50,6 +54,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 FLAGSHIP = REPO / "pillarnext_tpu/configs/experiments/nusc_det_pp18_aspp_iou_sp.yaml"
+VOXEL18 = REPO / "pillarnext_tpu/configs/experiments/nusc_det_voxel18_aspp_iou_sp.yaml"
 N_POINTS = 200_000
 TIMED_RUNS = 25
 PROFILED_CALLS = 20
@@ -276,10 +281,11 @@ def train_gather_inputs(cfg, batch, device) -> list:
     return [(name, table, idx) for name, (table, idx) in zip(names, calls)]
 
 
-def check_gather(reader, points, mask, slot, cap, gen, device, records, train_cases):
+def check_gather(reader, points, mask, slot, cap, gen, device, records, path_cases):
     """Kernel 2 vs its plain version, bit-exact, at the main paths' shapes:
-    the serving shapes on random tables, and ``train_cases`` — the tables
-    and index streams of a train step, in the dtypes that step used."""
+    the flagship serving shapes on random tables, and ``path_cases`` — the
+    tables and index streams of a train step and of the voxel18 densify, in
+    the dtypes those paths used."""
     from pillarnext_tpu_torch.ops.compact import invert_slot_map
     from pillarnext_tpu_torch.ops.gather import monotone_row_gather, monotone_row_gather_plain
 
@@ -293,7 +299,7 @@ def check_gather(reader, points, mask, slot, cap, gen, device, records, train_ca
         ("densify", random_table(cap, 64, torch.bfloat16), slot_of_dense),
         ("pfn_back_gather", random_table(cap, 32, torch.bfloat16), slot),
         ("cluster_mean_gather", random_table(cap, 3, torch.float32), slot),
-        *train_cases,
+        *path_cases,
     ]
     for name, table, idx in cases:
         (rows, c), dtype = table.shape, table.dtype
@@ -326,6 +332,8 @@ def check_gather(reader, points, mask, slot, cap, gen, device, records, train_ca
             raise AssertionError(f"monotone_row_gather is not bit-exact: {rec}")
         if name == "densify":
             records["monotone_row_gather"] = rec
+        if name == "voxel18_densify":
+            records["monotone_row_gather_voxel18"] = rec
 
 
 def check_segscan(train_slot, gen, device, records):
@@ -436,6 +444,14 @@ def layer_breakdown(model, points, mask, capacity):
         nms_ms.append(ms)
         return out
 
+    cfg = model.post_processing
+    if cfg.get("candidate_sparse_head", False):
+        def head(x):
+            return model.head(x, test_cfg=cfg)
+    else:
+        def head(x):
+            return model.head.predict(model.head(x), cfg)
+
     tel = {}
     with torch.inference_mode():
         sb, reader_ms = timed(lambda: model.reader(points, mask, capacity=capacity, telemetry=tel))
@@ -443,7 +459,7 @@ def layer_breakdown(model, points, mask, capacity):
         x, neck_ms = timed(lambda: model.neck(x))
         nms.rotated_nms = timed_nms
         try:
-            _, head_ms = timed(lambda: model.head(x, test_cfg=model.post_processing))
+            _, head_ms = timed(lambda: head(x))
         finally:
             nms.rotated_nms = rotated_nms
     return {
@@ -479,19 +495,26 @@ def train_breakdown(model, optimizer, batch, device):
 
 
 def profile_train_steps(model, optimizer, batches, device, steps: int = 2) -> dict:
-    """Device time of ``steps`` train steps under torch.profiler: the
-    card's busy share of the wall time, kernel launches, and the kernels
-    that took the most device time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """``profile_device`` of ``steps`` train steps."""
     from pillarnext_tpu_torch.train.train_state import train_step
     from pillarnext_tpu_torch.train.trainer import batch_to_device
+
+    it = iter(batches[:steps])
+    return profile_device(lambda: train_step(model, optimizer, batch_to_device(next(it), device)), steps)
+
+
+def profile_device(run, steps: int) -> dict:
+    """Device time of ``steps`` calls of ``run`` (a train step, a frame)
+    under torch.profiler: the card's busy share of the wall time, kernel
+    launches, and the kernels and the PyTorch ops whose kernels took the
+    most device time."""
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in batches[:steps]:
-            train_step(model, optimizer, batch_to_device(b, device))
+        for _ in range(steps):
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -501,12 +524,17 @@ def profile_train_steps(model, optimizer, batches, device, steps: int = 2) -> di
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.device_time / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:10]
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": busy_ms / steps,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "launches_per_step": len(kernels) / steps,
             "top_kernels_ms_per_step": [
                 {"name": k[:90], "ms": t / steps, "launches": n / steps} for k, (t, n) in top
+            ],
+            "top_ops_ms_per_step": [
+                {"op": e.key[:60], "ms": e.self_device_time_total / 1e3 / steps, "calls": e.count / steps}
+                for e in ops if e.self_device_time_total > 0
             ]}
 
 
@@ -572,6 +600,119 @@ def serving_path(cfg, model, pc_range, device):
         if launches[name] == 0:
             raise AssertionError(f"the serving path never launched {name}")
     return frames, launches
+
+
+def table_report(model, tel: dict, bucket: int, batch: int = 1) -> dict:
+    """Each compact table of a voxel18 predict: its active count (the
+    reader's voxels, each strided stage's sites) beside its rows."""
+    grid = model.reader.grid
+    spatial = (grid.size_z, grid.size_y, grid.size_x)
+    cap = min(bucket * batch, grid.num_voxels * batch)
+    caps = {"voxel": cap, **model.backbone.table_capacities(cap, batch, spatial)}
+    return {name: {"active": int(tel[f"{name}_active"]), "capacity": c,
+                   "overflow": int(tel[f"{name}_overflow"])} for name, c in caps.items()}
+
+
+def voxel_serving_path(cfg, device):
+    """The voxel18 serving main path, bf16, batch 1, through
+    AdaptivePredictor at the config's 40 x 1344 x 1344 grid."""
+    from pillarnext_tpu_torch.ops.gather import monotone_row_gather
+    from pillarnext_tpu_torch.ops.pfn import pfn_two_layer
+    from pillarnext_tpu_torch.ops.segscan import sorted_segment_bcast
+    from pillarnext_tpu_torch.serving import AdaptivePredictor
+    from pillarnext_tpu_torch.utils.builders import build_model
+
+    pc_range = cfg["model"]["reader"]["pc_range"]
+    model = build_model(cfg["model"], device=device, generator=torch.Generator().manual_seed(0))
+    engine = AdaptivePredictor(model)
+    frames = [frame(pc_range, seed, device) for seed in (0, 1, 2)]
+    counters = (pfn_two_layer, monotone_row_gather, sorted_segment_bcast)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters:
+        k.launches = 0
+    engine.warmup(*frames[0])
+    per_frame = []
+    d = 10 * int(cfg["model"]["post_processing"]["nms"]["nms_post_max_size"])
+    for seed, (p, m) in zip((0, 1, 2), frames):
+        out = engine.predict(p, m)
+        for key in ("box3d_lidar", "scores", "label_preds", "valid"):
+            if tuple(out[key].shape[:2]) != (1, d):
+                raise AssertionError(f"voxel18 {key} has shape {tuple(out[key].shape)}, expected (1, {d}, ...)")
+        if not (torch.isfinite(out["box3d_lidar"]).all() and torch.isfinite(out["scores"]).all()):
+            raise AssertionError(f"voxel18: non-finite detections for frame seed {seed}")
+        bucket = engine._operating_bucket()
+        tel = {}
+        with torch.inference_mode():
+            model.predict(p, m, capacity=bucket, telemetry=tel)
+        per_frame.append({"seed": seed, "valid": int(out["valid"].sum()), "bucket": bucket,
+                          "tables": table_report(model, tel, bucket)})
+    latencies = []
+    for _ in range(LATENCY_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.predict(*frames[0])
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.__name__: k.launches for k in counters}
+    emit({"phase": "main_path", "path": "serving_voxel18", "dtype": "bfloat16", "frames": per_frame,
+          "buckets": list(engine.buckets), "operating_bucket": engine._operating_bucket(),
+          "peak_required": engine.peak_required, "repaired": engine.repaired,
+          "latency_ms_median": statistics.median(latencies), "latency_ms": latencies,
+          "launches": launches,
+          "breakdown_ms": layer_breakdown(model, *frames[0], engine._operating_bucket()),
+          "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20})
+    if launches["monotone_row_gather"] == 0:
+        raise AssertionError("the voxel18 serving path never launched monotone_row_gather")
+    return model, frames, launches
+
+
+def voxel_f32_kernels_vs_plain(cfg, points, mask, device):
+    """The f32 voxel18 backbone on one reader table with kernel 2 and with
+    its plain version: the densify is an exact copy, so the BEV must be
+    bit-identical.  The frame's detections, kernel vs plain, are reported
+    as a matched fraction only (the reader's mean adds with atomics)."""
+    from pillarnext_tpu_torch.utils.builders import build_model
+
+    model = build_model(dict(cfg["model"], dtype="float32"), device=device,
+                        generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        sb = model.reader(points, mask)
+        bev, bev_plain = model.backbone(sb), model.backbone(sb, plain=True)
+        a, b = model.predict(points, mask), model.predict(points, mask, plain=True)
+    rec = {"phase": "voxel18_f32_kernels_vs_plain", "bev_shape": list(bev.shape),
+           "bev_bit_identical": torch.equal(bev, bev_plain),
+           "bev_max_abs_diff": float((bev - bev_plain).abs().max()),
+           "bev_nonzero_share": float((bev != 0).float().mean()),
+           "valid": [int(a["valid"][0].sum()), int(b["valid"][0].sum())],
+           "matched_fraction": matched_fraction(a, b)}
+    emit(rec)
+    if not rec["bev_bit_identical"]:
+        raise AssertionError(f"voxel18 f32 BEV differs between kernel 2 and its plain version: {rec}")
+
+
+def voxel_gather_inputs(model, points, mask) -> list:
+    """(name, table, idx) of kernel 2's one launch in a bf16 voxel18
+    forward: the densify at the final (2, 168, 168) grid."""
+    from pillarnext_tpu_torch.ops import densify
+    from pillarnext_tpu_torch.ops.gather import monotone_row_gather
+
+    calls = []
+
+    def capture(table, idx):
+        calls.append((table.clone(), idx.clone()))
+        return monotone_row_gather(table, idx)
+
+    saved = densify.monotone_row_gather
+    densify.monotone_row_gather = capture
+    try:
+        with torch.inference_mode():
+            model.backbone(model.reader(points, mask))
+    finally:
+        densify.monotone_row_gather = saved
+    if len(calls) != 1:
+        raise AssertionError(f"a voxel18 forward launched kernel 2 {len(calls)} times, expected 1")
+    return [("voxel18_densify", *calls[0])]
 
 
 def train_path(cfg, batches, device, work_dir):
@@ -712,17 +853,29 @@ def main() -> None:
     del model, model32, frames
     torch.cuda.empty_cache()
 
-    # phase 5: the training main path, bf16, B = 4, through the Trainer
+    # phase 5: the voxel18 serving main path, bf16, batch 1, at the config's
+    # 40 x 1344 x 1344 grid; then its f32 BEV with kernel 2 and with the
+    # plain version, and the densify's inputs for the kernel phase
+    vcfg = load_experiment(VOXEL18)
+    vmodel, vframes, voxel_launches = voxel_serving_path(vcfg, device)
+    voxel_cases = voxel_gather_inputs(vmodel, *vframes[0])
+    del vmodel
+    torch.cuda.empty_cache()
+    voxel_f32_kernels_vs_plain(vcfg, *vframes[0], device)
+    del vframes
+    torch.cuda.empty_cache()
+
+    # phase 6: the training main path, bf16, B = 4, through the Trainer
     # (its checkpoint goes to a directory of the checkout that is removed)
     with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
         train_model, train_launches = train_path(cfg, batches, device, work_dir)
     del train_model
     torch.cuda.empty_cache()
 
-    # phase 6: f32 train step, kernels vs plain versions
+    # phase 7: f32 train step, kernels vs plain versions
     f32_train_kernels_vs_plain(cfg, batches[0], device)
 
-    # phase 7: each kernel vs its plain version at the main paths' shapes (after
+    # phase 8: each kernel vs its plain version at the main paths' shapes (after
     # the main paths, so that torch.profiler has not traced the process they run in)
     gen = torch.Generator().manual_seed(0)
     model = build_model(cfg["model"], device=device, generator=gen)
@@ -732,14 +885,28 @@ def main() -> None:
     torch.cuda.empty_cache()
     with torch.inference_mode():
         slot, cap = check_pfn(model.reader, points, mask, gen, device, records)
-        check_gather(model.reader, points, mask, slot, cap, gen, device, records, train_cases)
-        del train_cases
+        check_gather(model.reader, points, mask, slot, cap, gen, device, records,
+                     train_cases + voxel_cases)
+        del train_cases, voxel_cases
         pts = torch.from_numpy(batches[0]["points"]).to(device)
         pmask = torch.from_numpy(batches[0]["points_mask"]).to(device)
         train_cap = int(cfg["model"]["reader"]["train_pillar_capacity"])
         train_slot = model.reader.decorate(pts, pmask, train_cap)[1]
         check_segscan(train_slot, gen, device, records)
         del pts, pmask, train_slot
+
+    # phase 9: where a serving frame's time goes on the device, for both
+    # serving paths at the reader's largest bucket (profiled last, as above)
+    vmodel = build_model(vcfg["model"], device=device, generator=torch.Generator().manual_seed(0))
+    vpoints, vmask = frame(vcfg["model"]["reader"]["pc_range"], 0, device)
+    with torch.inference_mode():
+        for path, mdl, (p, m) in (("serving", model, (points, mask)),
+                                  ("serving_voxel18", vmodel, (vpoints, vmask))):
+            mdl.predict(p, m)
+            emit({"phase": "frame_profile", "path": path,
+                  "predict": profile_device(lambda: mdl.predict(p, m), 3),
+                  "reader_and_backbone": profile_device(lambda: mdl.backbone(mdl.reader(p, m)), 3)})
+    del vmodel, vpoints, vmask
 
     def line(name, route, source, replaces, launches, **extra):
         rec = records[name]
@@ -749,11 +916,18 @@ def main() -> None:
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "device_ms": rec["device_ms"], "device_library_ms": rec["device_library_ms"], **extra}
 
+    gather_launches = {"serving": serve_launches["monotone_row_gather"],
+                       "serving_voxel18": voxel_launches["monotone_row_gather"],
+                       "train": train_launches["monotone_row_gather"]}
     kernels_line = [
         line("pfn_two_layer", "cuda", "pillarnext_tpu_torch/csrc/pfn.cu",
              "pillarnext_tpu/ops/pallas_pfn.py:93", serve_launches["pfn_two_layer"]),
         line("monotone_row_gather", "cuda", "pillarnext_tpu_torch/csrc/gather.cu",
-             "pillarnext_tpu/ops/pallas_gather.py:60", serve_launches["monotone_row_gather"]),
+             "pillarnext_tpu/ops/pallas_gather.py:60", sum(gather_launches.values()),
+             launches_by_path=gather_launches,
+             voxel18_densify={k: records["monotone_row_gather_voxel18"][k] for k in (
+                 "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "device_ms", "device_plain_ms", "device_library_ms")}),
         line("sorted_segment_bcast", "cuda", "pillarnext_tpu_torch/csrc/segscan.cu",
              "pillarnext_tpu/ops/pallas_segscan.py:124", train_launches["sorted_segment_bcast"],
              launches_per_train_step=train_launches["sorted_segment_bcast"] / TRAIN_STEPS,

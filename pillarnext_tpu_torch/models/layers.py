@@ -151,3 +151,26 @@ class ConvTransposeBlock(nn.Module):
     def forward(self, x):
         y = F.conv_transpose2d(x, self.conv.weight.to(x.dtype), stride=self.conv.stride)
         return torch.relu(self.norm(y))
+
+
+class SparseConvBlock3d(nn.Module):
+    """Parameters of a 3-D sparse conv + BN (+ ReLU) block: a SubM conv at
+    stride 1, a strided SparseConv3d otherwise, or the SubM 1x1x1 mapping.
+    The weight keeps torch's Conv3d layout (O, I, kz, ky, kx); the sparse
+    forward reads it as (K, I, O) taps, z-major (models/resnet.py)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size=3, stride=1):
+        super().__init__()
+        self.conv = nn.Conv3d(in_ch, out_ch, kernel_size, stride, bias=False)
+        self.norm = BatchNorm(out_ch, BN_EPS_SPARSE, BN_MOMENTUM_SPARSE)
+
+
+class SparseResidualBlock3d(nn.Module):
+    """Parameters of a 3-D SubM residual block (conv + BN + ReLU -> conv +
+    BN -> + identity -> ReLU), named like ``ResidualBlock``."""
+
+    def __init__(self, ch, kernel_size=3):
+        super().__init__()
+        self.block1 = SparseConvBlock3d(ch, ch, kernel_size)
+        self.conv2 = nn.Conv3d(ch, ch, kernel_size, bias=False)
+        self.norm2 = BatchNorm(ch, BN_EPS_SPARSE, BN_MOMENTUM_SPARSE)

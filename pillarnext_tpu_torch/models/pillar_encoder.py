@@ -92,6 +92,11 @@ class PillarFeatureNet(nn.Module):
         )
         self._pfn_params = None  # (key, eval PFN parameters as kernel 1 takes them)
 
+    @property
+    def capacity(self) -> int:
+        """Compact slots per sample at the largest serving bucket."""
+        return self.pillar_capacity
+
     def pfn_params(self, device) -> tuple[torch.Tensor, ...]:
         """(w0, bn0, w1, bn1) of the eval PFN as kernel 1 takes them (f32,
         contiguous, BN folded, on ``device``), kept between calls.  They are

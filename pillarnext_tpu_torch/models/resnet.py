@@ -1,6 +1,8 @@
-"""BEV ResNet backbone: the eval ``leading`` path and the train ``all`` path.
+"""Sparse ResNet backbones: the BEV ResNet (eval ``leading`` and train
+``all`` paths) and the fully sparse 3-D voxel ResNet (eval).
 
-Counterpart of ``SparseResNet`` (pillarnext_tpu/models/resnet.py:445-805).
+Counterpart of ``SparseResNet`` (pillarnext_tpu/models/resnet.py:445-805)
+and of ``SparseResNet3D``'s sparse forward (resnet.py:915-1144).
 
 Eval (``sparse_eval=True``, ``sparse_stages_eval="leading"``,
 ``masked_eval=True``): the leading stride-1 stages run as SubM convs over
@@ -35,22 +37,33 @@ from pillarnext_tpu_torch.models.layers import (
     BatchNorm,
     ConvBlock,
     ResidualBlock,
+    SparseConvBlock3d,
+    SparseResidualBlock3d,
     conv2d,
 )
 from pillarnext_tpu_torch.ops.sparse_bev import SparseBEV
 from pillarnext_tpu_torch.ops.sparse_down import (
     build_down_neighbor_tables,
+    down_neighbor_table,
     downsample_active_set,
+    out_spatial_for,
     sparse_strided_conv,
 )
-from pillarnext_tpu_torch.ops.subm_conv import build_neighbor_table, subm_conv, subm_offsets_2d
+from pillarnext_tpu_torch.ops.subm_conv import (
+    build_neighbor_table,
+    gather_matmul,
+    subm_conv,
+    subm_offsets_2d,
+    subm_offsets_3d,
+)
 
 
-def _subm_kernel(conv: nn.Conv2d) -> torch.Tensor:
-    """Conv2d weight (O, I, kh, kw) -> SubM kernel (kh * kw, I, O), taps
-    row-major like ``subm_offsets_2d``."""
-    o, i, kh, kw = conv.weight.shape
-    return conv.weight.permute(2, 3, 1, 0).reshape(kh * kw, i, o)
+def _subm_kernel(conv: nn.Module) -> torch.Tensor:
+    """Conv2d / Conv3d weight (O, I, *k) -> sparse conv kernel (K, I, O),
+    taps row-major like ``subm_offsets_2d`` / ``subm_offsets_3d``."""
+    w = conv.weight
+    o, i = w.shape[:2]
+    return w.permute(*range(2, w.dim()), 1, 0).reshape(-1, i, o)
 
 
 def _with_dump_row(x: torch.Tensor) -> torch.Tensor:
@@ -77,6 +90,14 @@ def sparse_strided_block(block: ConvBlock, x, out_valid, nbr_fwd, nbr_rev):
     (resnet.py:160-180)."""
     y = sparse_strided_conv(_with_dump_row(x), nbr_fwd, nbr_rev, _subm_kernel(block.conv))
     y = block.norm(y, channel_dim=-1, valid=out_valid)
+    return torch.where(out_valid[:, None], torch.relu(y), 0.0)
+
+
+def sparse_down_block_eval(conv: nn.Module, norm: BatchNorm, x, out_valid, nbr_fwd):
+    """``sparse_strided_block`` without the reverse table the backward
+    needs: the eval forward of a strided sparse conv + BN + ReLU."""
+    y = gather_matmul(_with_dump_row(x), nbr_fwd, _subm_kernel(conv).to(x.dtype))
+    y = norm(y, channel_dim=-1, valid=out_valid)
     return torch.where(out_valid[:, None], torch.relu(y), 0.0)
 
 
@@ -213,3 +234,126 @@ class SparseResNet(nn.Module):
         table = torch.where(valid[:, None], torch.relu(y), 0.0)
         out = SparseBEV(_with_dump_row(table), valid, sod, slot_id, batch, tuple(spatial))
         return out.to_dense(plain=plain)
+
+
+# the reference's extra z-downsample: kernel (3, 1, 1), stride (2, 1, 1),
+# padding 0 (SparseConv3d's default; padding 1 would leave depth 3, not 2,
+# and break the channels the neck takes)
+EXTRA_Z_DOWN = ((3, 1, 1), (2, 1, 1), (0, 0, 0))
+
+
+class SparseResNet3D(nn.Module):
+    """3-D voxel ResNet over compact tables (the reference's
+    sparse_resnet3d.py:9-72): per stage a SubM (stride 1) or set-dilating
+    strided SparseConv3d block then ``layer_nums[i]`` SubM residual blocks,
+    the extra z-downsample (3, 1, 1) / (2, 1, 1) with padding 0, and a SubM
+    1x1x1 mapping to ``out_channels``; densified once at the final grid
+    (kernel 2 on a CUDA tensor) and folded depth-major,
+    (B, D, H, W, C) -> (B, H, W, D * C), as the JAX package folds it.
+
+    Each strided table has ``max(int(cap * stage_capacity_frac[i]), 4096)``
+    rows, capped by its output grid (``cap``: the reader's table); the
+    extra z-conv takes the entry after the stages' (or the last one).
+    Input: the voxel reader's SparseBEV over (D, H, W)."""
+
+    def __init__(
+        self,
+        layer_nums: Sequence[int],
+        ds_layer_strides: Sequence[int],
+        ds_num_filters: Sequence[int],
+        num_input_features: int,
+        kernel_size: Sequence[int] = (3, 3, 3, 3),
+        out_channels: int = 128,
+        stage_capacity_frac: Sequence[float] = (1.0, 1.5, 0.9, 0.4, 0.25),
+        dtype: torch.dtype | None = None,
+    ):
+        super().__init__()
+        self.layer_nums = tuple(int(n) for n in layer_nums)
+        self.strides = tuple(int(s) for s in ds_layer_strides)
+        self.kernel_size = tuple(int(k) for k in kernel_size)
+        self.stage_capacity_frac = tuple(float(f) for f in stage_capacity_frac)
+        blocks = []
+        in_ch = num_input_features
+        for i, n_blocks in enumerate(self.layer_nums):
+            ch, k = int(ds_num_filters[i]), self.kernel_size[i]
+            stage = [SparseConvBlock3d(in_ch, ch, k, stride=self.strides[i])]
+            stage += [SparseResidualBlock3d(ch, k) for _ in range(n_blocks)]
+            blocks.append(nn.ModuleList(stage))
+            in_ch = ch
+        self.blocks = nn.ModuleList(blocks)
+        # reference schema: extra_conv.0 = conv, extra_conv.1 = BN
+        self.extra_conv = nn.Sequential(
+            nn.Conv3d(in_ch, in_ch, *EXTRA_Z_DOWN[:2], bias=False),
+            BatchNorm(in_ch, BN_EPS_SPARSE, BN_MOMENTUM_SPARSE),
+        )
+        self.mapping = SparseConvBlock3d(in_ch, out_channels, 1)
+
+    def table_capacities(self, cap: int, batch: int, spatial: tuple) -> dict:
+        """Rows of each strided table (``stage{i}``, ``extra``) for a reader
+        table of ``cap`` rows over ``batch`` x ``spatial``."""
+        fracs = self.stage_capacity_frac
+        caps = {}
+        for i, (k, s) in enumerate(zip(self.kernel_size, self.strides)):
+            if s > 1:
+                spatial = out_spatial_for(spatial, (k,) * 3, (s,) * 3)
+                caps[f"stage{i}"] = (fracs[i], spatial)
+        extra_frac = fracs[len(self.layer_nums)] if len(fracs) > len(self.layer_nums) else fracs[-1]
+        caps["extra"] = (extra_frac, out_spatial_for(spatial, *EXTRA_Z_DOWN))
+        return {name: min(max(int(cap * frac), 4096), batch * int(np.prod(sp)))
+                for name, (frac, sp) in caps.items()}
+
+    def forward(self, sb: SparseBEV, plain: bool = False, telemetry=None) -> torch.Tensor:
+        """SparseBEV over (D, H, W) -> (B, H', W', D' * out_channels).
+        ``telemetry`` (a dict) receives ``stage{i}_active`` /
+        ``stage{i}_overflow`` of each strided stage and ``extra_active`` /
+        ``extra_overflow`` as device scalars; ``plain`` keeps CUDA tensors
+        on kernel 2's plain version."""
+        if self.training:
+            raise NotImplementedError("SparseResNet3D training not ported yet, see ROADMAP")
+        if not isinstance(sb, SparseBEV) or len(sb.spatial) != 3:
+            raise TypeError(
+                "SparseResNet3D takes the voxel reader's SparseBEV over (D, H, W) "
+                "(the dense 3-D path is not ported yet, see ROADMAP)"
+            )
+        telemetry = {} if telemetry is None else telemetry
+        batch, spatial, cap = sb.batch, tuple(sb.spatial), sb.capacity
+        table, valid, sod, slot_id = sb.table[:-1], sb.valid, sb.slot_of_dense, sb.slot_id
+        caps = self.table_capacities(cap, batch, spatial)
+
+        def down(table, kernel_shape, stride, padding, name, conv, norm):
+            """One set-dilating strided conv block into a table of its own."""
+            nonlocal valid, sod, slot_id, spatial
+            cap_out = caps[name]
+            out_slot_id, out_sod, out_valid, out_sp, n_out = downsample_active_set(
+                sod, valid.shape[0], batch, spatial, kernel_shape, stride, cap_out, padding
+            )
+            telemetry[f"{name}_active"] = n_out
+            telemetry[f"{name}_overflow"] = torch.clamp(n_out - cap_out, min=0)
+            nbr_fwd = down_neighbor_table(
+                sod, out_slot_id, valid.shape[0], batch, spatial, kernel_shape, stride, padding
+            )
+            table = sparse_down_block_eval(conv, norm, table, out_valid, nbr_fwd)
+            valid, sod, slot_id, spatial = out_valid, out_sod, out_slot_id, out_sp
+            return table
+
+        for i, stage in enumerate(self.blocks):
+            k, s = self.kernel_size[i], self.strides[i]
+            if s > 1:
+                table = down(table, (k,) * 3, (s,) * 3, None, f"stage{i}", stage[0].conv, stage[0].norm)
+            nbr = build_neighbor_table(sod, slot_id, spatial, subm_offsets_3d(k), valid.shape[0])
+            if s == 1:
+                table = sparse_conv_block(stage[0], table, valid, nbr)
+            for block in stage[1:]:
+                table = sparse_residual_block(block, table, valid, nbr)
+        table = down(table, *EXTRA_Z_DOWN, "extra", *self.extra_conv)
+
+        # SubM 1x1x1 mapping: the site's own row only
+        y = table @ _subm_kernel(self.mapping.conv)[0].to(table.dtype)
+        y = self.mapping.norm(y, channel_dim=-1, valid=valid)
+        table = torch.where(valid[:, None], torch.relu(y), 0.0)
+
+        out = SparseBEV(_with_dump_row(table), valid, sod, slot_id, batch, spatial)
+        dense = out.to_dense(plain=plain)  # (B, D, H, W, C)
+        b, d, h, w, c = dense.shape
+        return dense.permute(0, 2, 3, 1, 4).reshape(b, h, w, d * c)
+

@@ -1,4 +1,4 @@
-"""Compact active-site representation of a BEV grid.
+"""Compact active-site representation of a BEV grid or a voxel volume.
 
 Counterpart of ``SparseBEV`` (pillarnext_tpu/ops/sparse_bev.py:19-43).
 """
@@ -16,10 +16,10 @@ from pillarnext_tpu_torch.ops.densify import densify
 class SparseBEV:
     table: torch.Tensor          # (cap + 1, C); row cap is the all-zero dump row
     valid: torch.Tensor          # (cap,) bool: slot is an occupied cell
-    slot_of_dense: torch.Tensor  # (B * H * W,) int32 -> slot, cap if empty
-    slot_id: torch.Tensor        # (cap,) int32 dense position (B*H*W if unused)
+    slot_of_dense: torch.Tensor  # (B * prod(spatial),) int32 -> slot, cap if empty
+    slot_id: torch.Tensor        # (cap,) int32 dense position (B * prod(spatial) if unused)
     batch: int
-    spatial: tuple               # (H, W)
+    spatial: tuple               # (H, W), or (D, H, W) for voxels
 
     @property
     def capacity(self) -> int:
@@ -32,6 +32,7 @@ class SparseBEV:
         return dataclasses.replace(self, table=features)
 
     def to_dense(self, plain: bool = False) -> torch.Tensor:
-        """(B, H, W, C) through one row gather (a row gather backward)."""
+        """(B, *spatial, C) through one row gather (a row gather backward):
+        kernel 2 on a CUDA tensor unless ``plain``."""
         dense = densify(self.table, self.slot_of_dense, self.slot_id, plain=plain)
         return dense.reshape(self.batch, *self.spatial, self.table.shape[-1])

@@ -1,31 +1,32 @@
 """Sparse strided convolution over compact tables, active-set dilating.
 
 Counterpart of pillarnext_tpu/ops/sparse_down.py:39-268 (spconv's
-``SparseConv2d`` with stride > 1).  An output site is active iff its
+``SparseConv2d`` / ``SparseConv3d`` with stride > 1).  An output site is active iff its
 receptive window covers at least one active input site; its value is the
 windowed sum over the input features (inactive inputs contribute zero).
 
 1. ``downsample_active_set``: the dilated output set is a max-pool of the
    input occupancy; compact slots follow ascending dense ids by one prefix
-   sum (no sort, no host synchronisation).
-2. ``build_down_neighbor_tables``: per output slot the K strided-tap input
-   slots (forward), and per input slot the K output slots it feeds
-   (reverse, for the backward).
+   sum and a binary search per slot (no sort, no scatter, no host
+   synchronisation).
+2. ``down_neighbor_table``: per output slot the K strided-tap input slots;
+   ``build_down_neighbor_tables`` adds per input slot the K output slots
+   it feeds (reverse, for the backward).
 3. ``sparse_strided_conv``: a K * Cin gather and one matmul; the backward
    is a reverse gather of the cotangent feeding both ``dx`` and ``dW``.
 
-Convention: kernel tap t (row-major over the kernel, pad p = k // 2,
-stride s) reads input coordinate ``s * oc + t - p`` of output coordinate
-``oc`` — torch's strided cross-correlation.
+Convention: kernel tap t (row-major over the kernel, pad p = k // 2 unless
+given, stride s) reads input coordinate ``s * oc + t - p`` of output
+coordinate ``oc`` — torch's strided cross-correlation.
 """
 
 from __future__ import annotations
 
-import itertools
-
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from pillarnext_tpu_torch.ops.subm_conv import box_taps, gather_matmul, row_major_strides
 
 
 def out_spatial_for(spatial, kernel_shape, stride, padding=None) -> tuple:
@@ -37,6 +38,9 @@ def out_spatial_for(spatial, kernel_shape, stride, padding=None) -> tuple:
     )
 
 
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+
+
 def downsample_active_set(
     slot_of_dense: torch.Tensor,
     cap_in: int,
@@ -45,38 +49,74 @@ def downsample_active_set(
     kernel_shape: tuple,
     stride: tuple,
     cap_out: int,
+    padding: tuple | None = None,
 ):
-    """Active output set of a 2-D strided sparse conv.
+    """Active output set of a 2-D or 3-D strided sparse conv.
 
     Args:
-        slot_of_dense: (B * H * W,) int32 dense -> slot map of the input set
-            (``cap_in`` where empty); only occupancy is read.
+        slot_of_dense: (B * prod(in_spatial),) int32 dense -> slot map of
+            the input set (``cap_in`` where empty); only occupancy is read.
+        padding: per spatial dim, ``k // 2`` by default; the 3-D backbone's
+            extra z-downsample uses 0.
 
-    Returns (out_slot_id (cap_out,) int32, out_slot_of_dense (B * H' * W',)
-    int32, out_valid (cap_out,) bool, out_spatial, n_out ()) — ``n_out`` is
-    the true dilated count; ``n_out > cap_out`` means sites were dropped
-    (callers report it as overflow telemetry).
+    Returns (out_slot_id (cap_out,) int32, out_slot_of_dense (B *
+    prod(out_spatial),) int32, out_valid (cap_out,) bool, out_spatial,
+    n_out ()) — ``n_out`` is the true dilated count; ``n_out > cap_out``
+    means sites were dropped (callers report it as overflow telemetry).
     """
-    out_sp = out_spatial_for(in_spatial, kernel_shape, stride)
+    if padding is None:
+        padding = tuple(k // 2 for k in kernel_shape)
+    out_sp = out_spatial_for(in_spatial, kernel_shape, stride, padding)
     out_rows = batch * int(np.prod(out_sp))
-    occ = (slot_of_dense < cap_in).float().reshape(batch, 1, *in_spatial)
-    pooled = F.max_pool2d(
-        occ, kernel_shape, stride, tuple(k // 2 for k in kernel_shape)
-    ).reshape(-1)
+    # occupancy in the narrowest dtype max-pooling takes on CUDA: at the
+    # voxel18 grid it is 72.3M cells; 0/1 are exact in bf16
+    occ = (slot_of_dense < cap_in).to(torch.bfloat16).reshape(batch, 1, *in_spatial)
+    pooled = _MAX_POOL[len(in_spatial)](occ, kernel_shape, stride, padding).reshape(-1)
     out_mask = pooled > 0
-    slots = torch.cumsum(out_mask, 0, dtype=torch.int32) - 1
-    n_out = slots[-1] + 1
+    counts = torch.cumsum(out_mask, 0, dtype=torch.int32)
+    n_out = counts[-1]
+    slots = counts - 1
     occupied = out_mask & (slots < cap_out)
     out_sod = torch.where(occupied, slots, cap_out).to(torch.int32)
-    # slot -> dense id; every overflowing or empty cell writes the shadow
-    # row cap_out, which is cut off
-    idx = torch.where(occupied, slots, cap_out).long()
-    out_slot_id = torch.full((cap_out + 1,), out_rows, dtype=torch.int32, device=slot_of_dense.device)
-    out_slot_id.scatter_(
-        0, idx, torch.arange(out_rows, dtype=torch.int32, device=slot_of_dense.device)
-    )
-    out_slot_id = out_slot_id[:cap_out]
+    # slot -> dense id: slot j sits at the first cell whose running count
+    # reaches j + 1, and past the last occupied cell at ``out_rows``
+    want = torch.arange(1, cap_out + 1, dtype=torch.int32, device=slot_of_dense.device)
+    out_slot_id = torch.searchsorted(counts, want, out_int32=True)
     return out_slot_id, out_sod, out_slot_id < out_rows, out_sp, n_out
+
+
+def down_neighbor_table(
+    in_slot_of_dense: torch.Tensor,
+    out_slot_id: torch.Tensor,
+    cap_in: int,
+    batch: int,
+    in_spatial: tuple,
+    kernel_shape: tuple,
+    stride: tuple,
+    padding: tuple | None = None,
+) -> torch.Tensor:
+    """(cap_out, K) int32 input slot of each output slot's strided tap,
+    ``cap_in`` where inactive; K = prod(kernel_shape), taps row-major over
+    the kernel (z-major in 3-D), all at once."""
+    if padding is None:
+        padding = tuple(k // 2 for k in kernel_shape)
+    in_sp = tuple(int(v) for v in in_spatial)
+    out_sp = out_spatial_for(in_sp, kernel_shape, stride, padding)
+    out_cell, in_cell = int(np.prod(out_sp)), int(np.prod(in_sp))
+    o = out_slot_id.long()
+    ok_o = o < batch * out_cell
+    o = torch.where(ok_o, o, 0)
+    rem = o % out_cell
+    ok, did = ok_o[:, None], ((o // out_cell) * in_cell)[:, None]
+    taps = box_taps(kernel_shape, out_slot_id.device)
+    for tap, s, p, n, n_out, out_st, in_st in zip(
+        taps, stride, padding, in_sp, out_sp, row_major_strides(out_sp), row_major_strides(in_sp)
+    ):
+        ic = (rem // out_st % n_out)[:, None] * s + (tap - p)[None, :]
+        ok = ok & (ic >= 0) & (ic < n)
+        did = did + ic * in_st
+    did = torch.where(ok, did, 0)
+    return torch.where(ok, in_slot_of_dense[did], cap_in).to(torch.int32)
 
 
 def build_down_neighbor_tables(
@@ -87,33 +127,19 @@ def build_down_neighbor_tables(
     in_spatial: tuple,
     kernel_shape: tuple,
     stride: tuple,
+    padding: tuple | None = None,
 ):
     """(nbr_fwd (cap_out, K) -> input slots, nbr_rev (cap_in, K) -> output
     slots), K = prod(kernel_shape); inactive entries hold the dump index
     (cap_in, cap_out).  The reverse table is the adjoint of the forward
     one (``rev[i, t] = o`` iff ``fwd[o, t] = i``), built by one scatter
     with unique targets."""
-    out_sp = out_spatial_for(in_spatial, kernel_shape, stride)
     cap_in = in_slot_id.shape[0]
     cap_out = out_slot_id.shape[0]
     device = out_slot_id.device
-    h_in, w_in = (int(v) for v in in_spatial)
-    h_out, w_out = (int(v) for v in out_sp)
-
-    o = out_slot_id.long()
-    ok_o = o < batch * h_out * w_out
-    o = torch.where(ok_o, o, 0)
-    ob, rem = o // (h_out * w_out), o % (h_out * w_out)
-    oy, ox = rem // w_out, rem % w_out
-    fwd = []
-    for ty, tx in itertools.product(range(kernel_shape[0]), range(kernel_shape[1])):
-        iy = oy * stride[0] + ty - kernel_shape[0] // 2
-        ix = ox * stride[1] + tx - kernel_shape[1] // 2
-        ok = ok_o & (iy >= 0) & (iy < h_in) & (ix >= 0) & (ix < w_in)
-        did = torch.where(ok, (ob * h_in + iy) * w_in + ix, 0)
-        fwd.append(torch.where(ok, in_slot_of_dense[did], cap_in))
-    nbr_fwd = torch.stack(fwd, dim=-1).to(torch.int32)
-
+    nbr_fwd = down_neighbor_table(
+        in_slot_of_dense, out_slot_id, cap_in, batch, in_spatial, kernel_shape, stride, padding
+    )
     nk = nbr_fwd.shape[1]
     o_ids = torch.arange(cap_out, dtype=torch.long, device=device)
     # inactive taps write distinct shadow rows past cap_in
@@ -128,11 +154,8 @@ def build_down_neighbor_tables(
 class _SparseStridedConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, nbr_fwd, nbr_rev, kernel):
-        cap_out, k = nbr_fwd.shape
-        cin = table.shape[1]
         ctx.save_for_backward(table, nbr_rev, kernel)
-        x = table.index_select(0, nbr_fwd.reshape(-1).long()).reshape(cap_out, k * cin)
-        return x @ kernel.reshape(k * cin, -1)
+        return gather_matmul(table, nbr_fwd, kernel)
 
     @staticmethod
     def backward(ctx, g):

@@ -28,6 +28,28 @@ def subm_offsets_2d(kernel_size: int = 3) -> np.ndarray:
     )
 
 
+def subm_offsets_3d(kernel_size: int = 3) -> np.ndarray:
+    """Row-major (dz, dy, dx) offsets, centred; K = kernel_size ** 3."""
+    r = kernel_size // 2
+    return np.array(
+        [(dz, dy, dx) for dz in range(-r, r + 1) for dy in range(-r, r + 1) for dx in range(-r, r + 1)],
+        np.int32,
+    )
+
+
+def row_major_strides(sizes) -> list:
+    """Strides of a row-major array of ``sizes``, in elements."""
+    return [int(np.prod(sizes[i + 1:])) for i in range(len(sizes))]
+
+
+def box_taps(kernel_shape, device) -> list:
+    """Per spatial dim, the (K,) int64 index along that dim of each tap of
+    a kernel box enumerated row-major (z-major in 3-D), built on ``device``
+    from an ``arange``: no host-to-device copy."""
+    t = torch.arange(int(np.prod(kernel_shape)), device=device)
+    return [t // int(np.prod(kernel_shape[i + 1:])) % int(k) for i, k in enumerate(kernel_shape)]
+
+
 def build_neighbor_table(
     slot_of_dense: torch.Tensor,
     slot_id: torch.Tensor,
@@ -35,49 +57,53 @@ def build_neighbor_table(
     offsets: np.ndarray,
     cap: int,
 ) -> torch.Tensor:
-    """(cap, K) int32 neighbour slot per tap, ``cap`` when inactive.
+    """(cap, K) int32 neighbour slot per tap, ``cap`` when inactive.  All
+    taps at once, a few launches per spatial dim.
 
     Args:
         slot_of_dense: (B * prod(spatial),) int32 dense position -> slot.
         slot_id: (cap,) int32 dense position of each slot; unused slots hold
             an out-of-range id.
-        spatial: (H, W).
-        offsets: (K, 2) int32 tap offsets.
+        spatial: (H, W) or (D, H, W).
+        offsets: (K, len(spatial)) int32 tap offsets: a box enumerated
+            row-major, as ``subm_offsets_2d`` / ``subm_offsets_3d`` give.
         cap: table capacity (the dump slot).
     """
+    offsets = np.asarray(offsets)
+    lo = offsets.min(0)
+    shape = tuple(int(v) for v in offsets.max(0) - lo + 1)
+    box = np.stack(np.meshgrid(*(np.arange(n) for n in shape), indexing="ij"), -1).reshape(-1, len(shape))
+    if not np.array_equal(offsets, box + lo):
+        raise ValueError("offsets must enumerate a box row-major")
     sizes = [int(s) for s in spatial]
-    strides = [int(np.prod(sizes[i + 1:])) for i in range(len(sizes))]
-    cell = int(np.prod(sizes))
     d = slot_id.to(torch.int64)
     in_table = d < slot_of_dense.shape[0]
     d_safe = torch.where(in_table, d, 0)
-    rem = d_safe % cell
-    coords = []
-    for stride in strides:
-        coords.append(rem // stride)
-        rem = rem % stride
-    nbrs = []
-    dump = torch.full_like(slot_id, cap)
-    for off in offsets:
-        ok = in_table
-        nd = d_safe
-        for i, o in enumerate(int(v) for v in off):
-            ci = coords[i] + o
-            ok = ok & (ci >= 0) & (ci < sizes[i])
-            nd = nd + o * strides[i]
-        nd = torch.where(ok, nd, 0)
-        nbrs.append(torch.where(ok, slot_of_dense[nd], dump))
-    return torch.stack(nbrs, dim=-1)
+    rem = d_safe % int(np.prod(sizes))
+    ok, nd = in_table[:, None], d_safe[:, None]
+    for tap, low, size, stride in zip(box_taps(shape, slot_id.device), lo, sizes, row_major_strides(sizes)):
+        off = tap + int(low)
+        c = (rem // stride % size)[:, None] + off[None, :]
+        ok = ok & (c >= 0) & (c < size)
+        nd = nd + off * stride
+    nd = torch.where(ok, nd, 0)
+    return torch.where(ok, slot_of_dense[nd], cap).to(torch.int32)
+
+
+def gather_matmul(table: torch.Tensor, nbr: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """``concat_k table[nbr[:, k]] @ kernel`` for a (rows, K) tap table and
+    a (K, Cin, Cout) kernel: the forward of every sparse conv."""
+    rows, k = nbr.shape
+    cin = table.shape[1]
+    x = table.index_select(0, nbr.reshape(-1).long()).reshape(rows, k * cin)
+    return x @ kernel.reshape(k * cin, -1)
 
 
 class _SubMConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, nbr, kernel):
-        cap, k = nbr.shape
-        cin = table.shape[1]
         ctx.save_for_backward(table, nbr, kernel)
-        x = table.index_select(0, nbr.reshape(-1).long()).reshape(cap, k * cin)
-        return x @ kernel.reshape(k * cin, -1)
+        return gather_matmul(table, nbr, kernel)
 
     @staticmethod
     def backward(ctx, g):

@@ -1,8 +1,8 @@
-"""Static-shape pillarization.
+"""Static-shape pillarization and voxelization.
 
-Counterpart of pillarnext_tpu/ops/voxelize.py:22-79: the segment id of a
+Counterpart of pillarnext_tpu/ops/voxelize.py:22-115: the segment id of a
 point is its linear dense grid index; padded and out-of-range points go to
-the dump segment ``H * W``.
+the dump segment (``H * W`` for pillars, ``D * H * W`` for voxels).
 """
 
 from __future__ import annotations
@@ -37,14 +37,24 @@ class VoxelGrid(NamedTuple):
     def num_pillars(self) -> int:
         return self.size_y * self.size_x
 
+    @property
+    def num_voxels(self) -> int:
+        return self.size_z * self.size_y * self.size_x
+
+
+def _cell(grid: VoxelGrid, xyz: torch.Tensor, axis: int) -> torch.Tensor:
+    """floor((xyz[:, axis] - origin) / voxel size) as int32.  The size is
+    divided as a tensor on xyz's device: with a Python scalar divisor CUDA
+    multiplies by its reciprocal, which can differ from the quotient in the
+    last bit and put a point on a cell boundary into the neighbour cell."""
+    size = torch.full((), grid.voxel_size[axis], dtype=xyz.dtype, device=xyz.device)
+    return torch.floor((xyz[:, axis] - grid.pc_range[axis]) / size).to(torch.int32)
+
 
 def pillar_coords(grid: VoxelGrid, xyz: torch.Tensor, valid: torch.Tensor):
     """(px, py) int32 pillar coords (clamped) and validity (input mask AND
-    in range in x/y) for (N, 3) points.  The grid's constants enter as
-    Python scalars (the same f32 arithmetic as constant tensors), so no
-    host-to-device copy waits for the card."""
-    px = torch.floor((xyz[:, 0] - grid.pc_range[0]) / grid.voxel_size[0]).to(torch.int32)
-    py = torch.floor((xyz[:, 1] - grid.pc_range[1]) / grid.voxel_size[1]).to(torch.int32)
+    in range in x/y) for (N, 3) points."""
+    px, py = _cell(grid, xyz, 0), _cell(grid, xyz, 1)
     in_range = (px >= 0) & (px < grid.size_x) & (py >= 0) & (py < grid.size_y)
     valid = valid & in_range
     return px.clamp(0, grid.size_x - 1), py.clamp(0, grid.size_y - 1), valid
@@ -54,3 +64,20 @@ def pillar_segment_ids(grid: VoxelGrid, px, py, valid) -> torch.Tensor:
     """Per-point segment id ``y * W + x``; invalid points -> ``H * W``."""
     sid = py * grid.size_x + px
     return torch.where(valid, sid, torch.full_like(sid, grid.num_pillars))
+
+
+def voxel_coords(grid: VoxelGrid, xyz: torch.Tensor, valid: torch.Tensor):
+    """(vx, vy, vz) int32 voxel coords (clamped) and validity (input mask
+    AND in range in x, y and z) for (N, 3) points."""
+    v = [_cell(grid, xyz, i) for i in range(3)]
+    sizes = (grid.size_x, grid.size_y, grid.size_z)
+    for c, n in zip(v, sizes):
+        valid = valid & (c >= 0) & (c < n)
+    return (*(c.clamp(0, n - 1) for c, n in zip(v, sizes)), valid)
+
+
+def voxel_segment_ids(grid: VoxelGrid, vx, vy, vz, valid) -> torch.Tensor:
+    """Per-point segment id ``(z * H + y) * W + x``; invalid points ->
+    ``D * H * W``."""
+    sid = (vz * grid.size_y + vy) * grid.size_x + vx
+    return torch.where(valid, sid, torch.full_like(sid, grid.num_voxels))

@@ -5,12 +5,16 @@ without its tile-capacity branches.  A bucket is the capacity argument of
 the reader's compact table, so a bucket costs nothing to add.  Each frame
 is dispatched at the operating bucket; its overflow telemetry comes back
 with the detections as device scalars, and ``resolve`` reads all of a
-batch's counters in one transfer.  A frame that overflowed is recomputed
-at the largest bucket (no pillar is lost there, or it raises), and later
-frames dispatch at the largest bucket.  Without overflow a smaller table
-gives the same detections: the active set and every slot's values are
-unchanged.  Capacity tracking lowers the operating bucket to the measured
-requirement (peak active pillars x margin, quantised up).
+batch's counters in one transfer.  A frame's overflow is the sum of every
+counter whose name holds ``overflow``: the reader's, and the 3-D
+backbone's stage tables, which scale with the bucket, so a small bucket
+can overflow a stage while the reader fits.  A frame that overflowed is
+recomputed at the largest bucket (no site is lost there, or it raises),
+and later frames dispatch at the largest bucket.  Without overflow a
+smaller table gives the same detections: the active set and every slot's
+values are unchanged.  Capacity tracking lowers the operating bucket to
+the measured requirement (peak active pillars or voxels x margin,
+quantised up), as the JAX step does (serving.py:148-170).
 """
 
 from __future__ import annotations
@@ -28,8 +32,8 @@ def _round_cap(c: int, quantum: int = 4096) -> int:
 @dataclasses.dataclass
 class _Pending:
     out: Any                 # detection dict (device tensors)
-    overflow: torch.Tensor   # () pillars routed to the dump slot
-    active: torch.Tensor     # () occupied pillars
+    overflow: torch.Tensor   # () sites dropped by the reader and the stage tables
+    active: torch.Tensor     # () occupied pillars or voxels
     inputs: tuple            # (points, mask), kept for a repair
     bucket: int
 
@@ -38,7 +42,8 @@ class _Pending:
 class AdaptivePredictor:
     """Args:
         model: the port's detector in eval mode (utils/builders.build_model);
-            ``model.reader.pillar_capacity`` is the largest bucket.
+            ``model.reader.capacity`` (the pillar or voxel capacity) is the
+            largest bucket.
         buckets: ascending per-sample capacities; default (3/4 max, max).
     """
 
@@ -54,7 +59,7 @@ class AdaptivePredictor:
 
     def __post_init__(self):
         if self.buckets is None:
-            max_cap = int(self.model.reader.pillar_capacity)
+            max_cap = int(self.model.reader.capacity)
             self.buckets = (_round_cap(max_cap * 3 // 4), max_cap)
         self.buckets = tuple(sorted(int(b) for b in self.buckets))
 
@@ -62,7 +67,9 @@ class AdaptivePredictor:
         tel: dict = {}
         with torch.inference_mode():
             out = self.model.predict(points, mask, capacity=bucket, telemetry=tel)
-        return out, tel["pillar_overflow"], tel["pillar_active"]
+        overflow = sum(v for k, v in tel.items() if "overflow" in k)
+        active = sum(v for k, v in tel.items() if k in ("pillar_active", "voxel_active"))
+        return out, overflow, active
 
     def __call__(self, points, mask) -> _Pending:
         """Dispatch one batch at the operating bucket."""
@@ -106,7 +113,8 @@ class AdaptivePredictor:
                 if ov > 0:
                     raise RuntimeError(
                         "active set overflows even the largest capacity bucket "
-                        f"({max_bucket}); raise reader.pillar_capacity"
+                        f"({max_bucket}); raise the reader's capacity or the "
+                        "backbone's stage_capacity_frac"
                     )
                 outs.append(out)
                 self.repaired += 1
@@ -115,7 +123,8 @@ class AdaptivePredictor:
             elif overflowed > 0:
                 raise RuntimeError(
                     "active set overflows the largest capacity bucket "
-                    f"({max_bucket}); raise reader.pillar_capacity"
+                    f"({max_bucket}); raise the reader's capacity or the "
+                    "backbone's stage_capacity_frac"
                 )
             else:
                 outs.append(p.out)

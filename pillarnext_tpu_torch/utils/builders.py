@@ -41,7 +41,8 @@ def build_model(model_cfg: dict, device="cuda:0", generator: torch.Generator | N
     float32.  ``sync_batchnorm`` is dropped (one card; DDP is ROADMAP
     work).  A pillar reader feeding a SparseResNet that opens with stride 1
     emits its compact table and the backbone runs sparse (the reference's
-    sparse path).  ``train=True`` gives the reader the config's
+    sparse path); a voxel reader always emits its compact table for
+    SparseResNet3D.  ``train=True`` gives the reader the config's
     ``train_pillar_capacity`` for its training forward (serving keeps
     ``pillar_capacity``) and returns the model in train mode; otherwise in
     eval mode.  With ``generator`` the parameters are drawn from it
@@ -63,15 +64,21 @@ def build_model(model_cfg: dict, device="cuda:0", generator: torch.Generator | N
                 cfg[key].setdefault("dtype", dtype)
 
     rd, bb = cfg.get("reader"), cfg.get("backbone")
+    reader_name = str(rd.get("_target_", "")).split(".")[-1] if isinstance(rd, dict) else None
+    backbone_name = str(bb.get("_target_", "")).split(".")[-1] if isinstance(bb, dict) else None
     if (
-        isinstance(rd, dict)
-        and str(rd.get("_target_", "")).split(".")[-1] == "PillarFeatureNet"
-        and isinstance(bb, dict)
-        and str(bb.get("_target_", "")).split(".")[-1] == "SparseResNet"
+        reader_name == "PillarFeatureNet"
+        and backbone_name == "SparseResNet"
         and list(bb.get("ds_layer_strides", [0]))[0] == 1
     ):
         rd.setdefault("output", "sparse")
         bb.setdefault("sparse_eval", True)
+    if reader_name == "VoxelFeatureNet":
+        if train:
+            raise NotImplementedError("voxel18 training not ported yet, see ROADMAP")
+        if backbone_name == "SparseResNet3D":
+            # the dense (B, 40, 1344, 1344, C) volume would not fit the card
+            rd.setdefault("output", "sparse")
     check_targets(cfg)
     model = instantiate(cfg, registry=PORT_REGISTRY)
     if train and train_cap:

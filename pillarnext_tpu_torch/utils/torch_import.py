@@ -1,12 +1,13 @@
 """JAX ``{params, batch_stats}`` trees -> the port's state_dict (numpy only).
 
-The port's own copy of ``export_pillarnext`` and its helpers
-(pillarnext_tpu/utils/torch_import.py:378-518), for the standard (non-merged)
-pillarnet18_aspp layout.  It writes the reference checkpoint schema the
-port's modules use.  Layout conversions:
+The port's own copy of ``export_pillarnext`` and ``export_voxelnext`` and
+their helpers (pillarnext_tpu/utils/torch_import.py:378-599), for the
+standard (non-merged) pillarnet18_aspp and voxel18_aspp layouts.  They write
+the reference checkpoint schema the port's modules use.  Layout conversions:
 
   Dense kernel (in, out)               -> Linear (out, in)
   Conv kernel (kh, kw, in, out)        -> Conv2d (out, in, kh, kw)
+  Conv kernel (kz, ky, kx, in, out)    -> Conv3d (out, in, kz, ky, kx)
   ConvTranspose kernel (kh, kw, in, out), spatially flipped
                                        -> ConvTranspose2d (in, out, kh, kw)
   scale/bias + mean/var                -> BatchNorm weight/bias/running_*
@@ -140,4 +141,67 @@ def _export_neck_head(sd, p, s, tasks, common_heads, num_hm_conv=2):
                 bp[f"Conv_{ci}"]["kernel"]
             )
             sd[f"head.tasks.{ti}.{bname}.{t_final}.bias"] = np.asarray(bp[f"Conv_{ci}"]["bias"])
+    return sd
+
+
+def _inv_conv3d_kernel(k) -> np.ndarray:
+    """flax Conv3d (kz,ky,kx,I,O) -> torch Conv3d (O,I,kz,ky,kx)."""
+    return np.ascontiguousarray(np.transpose(np.asarray(k), (4, 3, 0, 1, 2)))
+
+
+def export_voxelnext(
+    params,
+    batch_stats,
+    *,
+    layer_nums=(2, 2, 2, 2),
+    ds_layer_strides=(1, 2, 2, 2),
+    tasks=(),
+    common_heads=None,
+    num_hm_conv=2,
+) -> dict[str, np.ndarray]:
+    """{params, batch_stats} of the voxel18_aspp detector (the sparse-path
+    tree of JAX ``SparseResNet3D``) -> a reference-named state_dict:
+    ``backbone.blocks.{i}.{j}...``, ``backbone.extra_conv.{0,1}``,
+    ``backbone.mapping.{conv,norm}``, then the neck and head.  The reader
+    has no parameters; a tree without ``neck`` exports the backbone only.
+    The BEV folds depth-major (the JAX package's order), so a checkpoint
+    trained by the reference would also need its neck input permuted."""
+    p, s = params, batch_stats
+    sd: dict[str, np.ndarray] = {}
+    bp, bs = p["backbone"], s["backbone"]
+
+    for si, (n_blocks, stride) in enumerate(zip(layer_nums, ds_layer_strides)):
+        if stride == 1:
+            # SparseConvBlock: Conv_0 + BatchNorm_0
+            sd[f"backbone.blocks.{si}.0.conv.weight"] = _inv_conv3d_kernel(
+                bp[f"stage_{si}_down"]["Conv_0"]["kernel"]
+            )
+            _inv_bn(
+                sd, f"backbone.blocks.{si}.0.norm",
+                bp[f"stage_{si}_down"]["BatchNorm_0"], bs[f"stage_{si}_down"]["BatchNorm_0"],
+            )
+        else:
+            # _SparseDownConv + a separate MaskedBatchNorm
+            sd[f"backbone.blocks.{si}.0.conv.weight"] = _inv_conv3d_kernel(
+                bp[f"stage_{si}_down"]["kernel"]
+            )
+            _inv_bn(sd, f"backbone.blocks.{si}.0.norm", bp[f"stage_{si}_down_bn"], bs[f"stage_{si}_down_bn"])
+        for bi in range(n_blocks):
+            rp, rs = bp[f"stage_{si}_block_{bi}"], bs[f"stage_{si}_block_{bi}"]
+            prefix = f"backbone.blocks.{si}.{bi + 1}"
+            sd[f"{prefix}.block1.conv.weight"] = _inv_conv3d_kernel(rp["ConvBlock_0"]["Conv_0"]["kernel"])
+            _inv_bn(sd, f"{prefix}.block1.norm", rp["ConvBlock_0"]["BatchNorm_0"], rs["ConvBlock_0"]["BatchNorm_0"])
+            sd[f"{prefix}.conv2.weight"] = _inv_conv3d_kernel(rp["Conv_0"]["kernel"])
+            _inv_bn(sd, f"{prefix}.norm2", rp["BatchNorm_0"], rs["BatchNorm_0"])
+
+    sd["backbone.extra_conv.0.weight"] = _inv_conv3d_kernel(bp["extra_conv"]["kernel"])
+    _inv_bn(sd, "backbone.extra_conv.1", bp["extra_conv_bn"], bs["extra_conv_bn"])
+    # SubM 1x1x1 mapping: flax Dense (I, O) -> torch Conv3d (O, I, 1, 1, 1)
+    sd["backbone.mapping.conv.weight"] = np.ascontiguousarray(
+        np.asarray(bp["mapping"]["kernel"]).T
+    )[:, :, None, None, None]
+    _inv_bn(sd, "backbone.mapping.norm", bp["mapping_bn"], bs["mapping_bn"])
+
+    if "neck" in p:
+        _export_neck_head(sd, p, s, tasks, common_heads, num_hm_conv)
     return sd

@@ -2,8 +2,9 @@
 
 The bridge carries the JAX package's ``{params, batch_stats}`` (numpy
 arrays) into the port's ``state_dict`` through the port's numpy-only
-``utils/torch_import.export_pillarnext``, which writes the reference
-checkpoint schema the port's modules use.
+``utils/torch_import`` exporters (``export_pillarnext`` for the pillar
+reader, ``export_voxelnext`` for the voxel reader), which write the
+reference checkpoint schema the port's modules use.
 """
 
 from __future__ import annotations
@@ -15,13 +16,14 @@ import torch
 from torch import nn
 
 from pillarnext_tpu_torch.models.layers import BatchNorm
-from pillarnext_tpu_torch.utils.torch_import import export_pillarnext
+from pillarnext_tpu_torch.models.voxel_encoder import VoxelFeatureNet
+from pillarnext_tpu_torch.utils.torch_import import export_pillarnext, export_voxelnext
 
 
 @torch.no_grad()
 def init_random(model: nn.Module, generator: torch.Generator) -> None:
-    """Draw every weight from ``generator``: conv/linear kernels
-    N(0, 1/fan_in) (lecun normal, as the JAX package initialises), the ASPP
+    """Draw every weight from ``generator``: conv (2-D and 3-D) and linear
+    kernels N(0, 1/fan_in) (lecun normal, as the JAX package initialises), the ASPP
     shared kernel N(0, 1) (the reference uses randn), biases 0 except the
     branches' final bias (the heatmap's init bias), BN at identity."""
     from pillarnext_tpu_torch.models.aspp import ASPPNeck
@@ -48,18 +50,23 @@ def init_random(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def state_dict_from_jax(model: nn.Module, params, batch_stats) -> dict[str, torch.Tensor]:
-    """The port's state_dict for a flagship-structured detector from JAX
-    ``params`` / ``batch_stats`` trees of numpy-convertible arrays."""
+    """The port's state_dict for a pillar (flagship-structured) or voxel
+    (voxel18-structured) detector from JAX ``params`` / ``batch_stats``
+    trees of numpy-convertible arrays; the reader's type picks the
+    exporter."""
     head = model.head
-    sd = export_pillarnext(
-        params,
-        batch_stats,
-        num_filters=model.reader.num_filters,
-        layer_nums=model.backbone.layer_nums,
-        tasks=head.class_names,
-        common_heads=head.common_heads,
-        num_hm_conv=head.num_hm_conv,
-    )
+    neck_head = dict(tasks=head.class_names, common_heads=head.common_heads,
+                     num_hm_conv=head.num_hm_conv)
+    if isinstance(model.reader, VoxelFeatureNet):
+        sd = export_voxelnext(
+            params, batch_stats, layer_nums=model.backbone.layer_nums,
+            ds_layer_strides=model.backbone.strides, **neck_head,
+        )
+    else:
+        sd = export_pillarnext(
+            params, batch_stats, num_filters=model.reader.num_filters,
+            layer_nums=model.backbone.layer_nums, **neck_head,
+        )
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 

@@ -261,9 +261,13 @@ def test_small_flagship_gpu_matches_cpu(device):
         got = model.to(device).predict(pts.to(device), mask.to(device))
     assert pfn_two_layer.launches > launches[0]
     assert monotone_row_gather.launches > launches[1]
-    got = {k: v.cpu() for k, v in got.items()}
+    _assert_same_detections({k: v.cpu() for k, v in got.items()}, want)
+
+
+def _assert_same_detections(got, want):
+    """The same detection set at the bars of tests/test_detection_parity.py."""
     assert int(want["valid"].sum()) >= 8
-    for i in range(2):
+    for i in range(want["valid"].shape[0]):
         gv, wv = got["valid"][i], want["valid"][i]
         assert int(gv.sum()) == int(wv.sum())
         gs, ws = got["scores"][i][gv], want["scores"][i][wv]
@@ -282,6 +286,64 @@ def test_small_flagship_gpu_matches_cpu(device):
         assert len(set(pair.tolist())) == len(pair)
         np.testing.assert_allclose(gb, wb[pair], atol=2e-2, rtol=1e-3)
         np.testing.assert_allclose(gs.numpy(), ws.numpy()[pair], atol=2e-3, rtol=1e-3)
+
+
+def test_voxel_and_pillar_coords_on_the_card_match_the_quotient(device):
+    """Points whose quotient by the voxel size sits within one bit of a
+    cell boundary (x * (1 / 0.075) rounds to the next cell where x / 0.075
+    does not): the card gives the cell of the true f32 quotient, as the
+    CPU and the JAX package do."""
+    from pillarnext_tpu_torch.ops import voxelize
+
+    grid = voxelize.VoxelGrid.create((0.075, 0.075, 0.2), (0.0, 0.0, 0.0, 100.8, 100.8, 8.0))
+    x = np.array([59.55, 50.175, 86.85, 74.25, 72.75], np.float32)
+    z = np.array([6.7999997, 5.2, 5.2, 6.7999997, 1.0], np.float32)
+    xyz = torch.from_numpy(np.stack([x, x[::-1].copy(), z], 1))
+    valid = torch.ones(5, dtype=torch.bool)
+    want = [np.floor(xyz[:, i].numpy() / np.float32(v)).astype(np.int32)
+            for i, v in enumerate(grid.voxel_size)]
+    for coords in (voxelize.voxel_coords, voxelize.pillar_coords):
+        got = coords(grid, xyz.to(device), valid.to(device))
+        for g, w in zip(got[:-1], want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+def test_small_voxel18_gpu_matches_cpu(device):
+    """The narrowed voxel18 (tests/test_torch_port_voxel_e2e.py's config,
+    f32) gives the same detections on the card, with kernel 2 as its
+    densify, as on the CPU; its BEV on the card is bit-identical with
+    kernel 2 and with the plain gather."""
+    from pathlib import Path
+
+    from pillarnext_tpu_torch.utils.builders import build_model
+    from pillarnext_tpu_torch.utils.config import load_experiment
+    from pillarnext_tpu_torch.utils.synth import lidar_like_points
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pc = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
+    voxel18 = (
+        Path(__file__).resolve().parent.parent
+        / "pillarnext_tpu/configs/experiments/nusc_det_voxel18_aspp_iou_sp.yaml"
+    )
+    cfg = load_experiment(voxel18, [
+        f"model.reader.pc_range={pc}", "model.reader.voxel_size=[0.25,0.25,0.2]",
+        "model.reader.voxel_capacity=4096", "model.backbone.ds_num_filters=[8,12,16,16]",
+        "model.backbone.out_channels=16", "model.neck.in_channels=32",
+        "model.head.in_channels=32", "+model.head.share_conv_channel=32", "model.dtype=float32",
+    ])["model"]
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    pts, mask = lidar_like_points(2, 3000, pc, seed=0)
+    pts, mask = torch.from_numpy(pts), torch.from_numpy(mask)
+    with torch.inference_mode():
+        want = model.predict(pts, mask)
+        launches = monotone_row_gather.launches
+        model = model.to(device)
+        got = model.predict(pts.to(device), mask.to(device))
+        assert monotone_row_gather.launches == launches + 1
+        sb = model.reader(pts.to(device), mask.to(device))
+        assert torch.equal(model.backbone(sb), model.backbone(sb, plain=True))
+    _assert_same_detections({k: v.cpu() for k, v in got.items()}, want)
 
 
 def _sorted_segments(n, huge, seed):

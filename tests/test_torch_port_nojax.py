@@ -5,7 +5,8 @@ runs in a fresh interpreter that imports only the port: it reads the
 flagship YAML with the port's own config loader, builds the small
 flagship-structured model on the CPU, runs one predict and one train
 step, and then requires that no module named ``jax*``, ``flax*``,
-``pillarnext_tpu`` or ``pillarnext_tpu.*`` was imported.
+``pillarnext_tpu`` or ``pillarnext_tpu.*`` was imported.  A second
+interpreter does the same for a predict of the small voxel18 model.
 """
 
 from __future__ import annotations
@@ -77,6 +78,54 @@ def test_port_predict_imports_no_jax():
     assert result["finite"]
     assert result["loss_finite"]
     assert result["step"] == 1
+    assert result["loaded"] == []
+
+
+VOXEL_SCRIPT = r"""
+import json, sys
+import torch
+from pillarnext_tpu_torch.serving import AdaptivePredictor
+from pillarnext_tpu_torch.utils.builders import build_model
+from pillarnext_tpu_torch.utils.config import load_experiment
+from pillarnext_tpu_torch.utils.synth import lidar_like_points
+
+pc = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
+cfg = load_experiment(sys.argv[1], [
+    f"model.reader.pc_range={pc}", "model.reader.voxel_size=[0.25,0.25,0.2]",
+    "model.reader.voxel_capacity=4096", "model.backbone.ds_num_filters=[8,12,16,16]",
+    "model.backbone.out_channels=16", "model.neck.in_channels=32",
+    "model.head.in_channels=32", "+model.head.share_conv_channel=32",
+])
+model = build_model(cfg["model"], device="cpu", generator=torch.Generator().manual_seed(0))
+pts, mask = lidar_like_points(1, 2000, pc, seed=0)
+out = AdaptivePredictor(model).predict(torch.from_numpy(pts), torch.from_numpy(mask))
+
+def foreign(name):
+    top = name.split(".")[0]
+    return top.startswith("jax") or top.startswith("flax") or top == "pillarnext_tpu"
+
+print(json.dumps({
+    "reader": type(model.reader).__name__,
+    "backbone": type(model.backbone).__name__,
+    "shape": list(out["box3d_lidar"].shape),
+    "finite": bool(torch.isfinite(out["box3d_lidar"]).all()),
+    "loaded": sorted(m for m in sys.modules if foreign(m)),
+}))
+"""
+
+
+def test_port_voxel18_predict_imports_no_jax():
+    voxel18 = REPO / "pillarnext_tpu/configs/experiments/nusc_det_voxel18_aspp_iou_sp.yaml"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", VOXEL_SCRIPT, str(voxel18)],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (result["reader"], result["backbone"]) == ("VoxelFeatureNet", "SparseResNet3D")
+    assert result["shape"] == [1, 10 * 83, 9]
+    assert result["finite"]
     assert result["loaded"] == []
 
 
