@@ -13,12 +13,19 @@ width, random weights from a seed:
   (nusc_det_voxel18_aspp_iou_sp: 40 x 1344 x 1344 voxels, the fully
   sparse 3-D ResNet, kernel 2 as its final densify), with its f32 BEV
   held bit-identical between kernel 2 and its plain version;
-- training: the port's Trainer, bf16, batch 4 of seeded synthetic scenes
+- train: the port's Trainer, bf16, batch 4 of seeded synthetic scenes
   at the dataloader's 300000-point capacity, five steps (flagship);
+- train_voxel18: the same for voxel18 at its config's grid (the fully
+  sparse 3-D ResNet's backward, kernel 2's densify and its backward),
+  with each table's active count beside its rows, and an f32 step whose
+  BEV must be bit-identical between the kernels and their plain versions;
 
 then holds each kernel against its plain PyTorch version at the shapes
-those paths give it.  Each kernel record carries two times: ``ms``, the
-median of CUDA events around single calls of the wrapper (what the
+those paths give it.  Kernel 3 (``sorted_segment_bcast``) also carries
+the segment sums of both readers (ops/scatter.py), so it runs on every
+path.  An f32 model keeps TF32 off by itself (``model.precision()``):
+the script sets no TF32 flag.  Each kernel record carries two times:
+``ms``, the median of CUDA events around single calls of the wrapper (what the
 serving path pays per call, host time included), and ``device_ms``, the
 device time of the kernels those calls launched under torch.profiler
 (likewise ``device_plain_ms`` and ``device_library_ms``).  The kernel
@@ -41,6 +48,7 @@ without a CUDA device it exits non-zero before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -182,12 +190,22 @@ def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def matched_fraction(a: dict, b: dict) -> float:
     """Share of two predictions' valid boxes that have a box of the same
-    label within 1 cm of their centre in the other."""
+    label within 1 cm of their centre in the other.  The distances are
+    direct differences: cdist's matrix-product form (its default beyond 25
+    rows) loses ~1 cm to cancellation at 50 m coordinates, so equal boxes
+    could fail to match."""
     va, vb = a["valid"][0], b["valid"][0]
     ka = torch.cat([a["label_preds"][0][va, None].float(), a["box3d_lidar"][0][va, :3]], 1)
     kb = torch.cat([b["label_preds"][0][vb, None].float(), b["box3d_lidar"][0][vb, :3]], 1)
-    matched = int((torch.cdist(ka, kb).min(1).values < 1e-2).sum()) if len(ka) and len(kb) else 0
-    return matched / max(len(ka), len(kb), 1)
+    if not (len(ka) and len(kb)):
+        return 0.0
+    dist = torch.cdist(ka, kb, compute_mode="donot_use_mm_for_euclid_dist")
+    return int((dist.min(1).values < 1e-2).sum()) / max(len(ka), len(kb))
+
+
+def same_prediction(a: dict, b: dict) -> bool:
+    """Every output of two predictions is the same bits."""
+    return all(torch.equal(a[k], b[k]) for k in a)
 
 
 def check_pfn(reader, points, mask, gen, device, records):
@@ -250,42 +268,80 @@ def check_pfn(reader, points, mask, gen, device, records):
     return slot, cap
 
 
-def train_gather_inputs(cfg, batch, device) -> list:
-    """(name, table, idx) of every kernel-2 launch in one bf16 train step
-    (forward and backward, no update) of the flagship on the train batch:
-    the cluster-mean gather of the reader, the H/8 densify of the
-    all-sparse backbone, and the densify's backward gather."""
-    from pillarnext_tpu_torch.ops import densify, scatter
-    from pillarnext_tpu_torch.ops.gather import monotone_row_gather
+@contextlib.contextmanager
+def captured(module, name: str):
+    """Inside the block, every call of the kernel wrapper ``module.name``
+    also appends a copy of its tensor arguments to the yielded list."""
+    real, calls = getattr(module, name), []
+
+    def capture(*args):
+        calls.append(tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return real(*args)
+
+    setattr(module, name, capture)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def train_step_calls(model_cfg, batch, device, module, name: str) -> list:
+    """The arguments of every call of ``module.name`` in one bf16 train
+    step (forward and backward, no update) of ``model_cfg`` on ``batch``."""
     from pillarnext_tpu_torch.train.trainer import batch_to_device
     from pillarnext_tpu_torch.utils.builders import build_model
 
-    calls = []
-
-    def capture(table, idx):
-        calls.append((table.detach().clone(), idx.clone()))
-        return monotone_row_gather(table, idx)
-
-    model = build_model(cfg["model"], device=device, generator=torch.Generator().manual_seed(0), train=True)
-    saved = scatter.monotone_row_gather, densify.monotone_row_gather
-    scatter.monotone_row_gather = densify.monotone_row_gather = capture
-    try:
+    model = build_model(model_cfg, device=device, generator=torch.Generator().manual_seed(0), train=True)
+    with captured(module, name) as calls:
         loss, _ = model.loss(batch_to_device(batch, device))
         loss.backward()
-    finally:
-        scatter.monotone_row_gather, densify.monotone_row_gather = saved
     del model, loss
-    names = ("train_cluster_mean_gather", "train_densify_h8", "train_densify_backward")
+    return calls
+
+
+def named(names: tuple, calls: list, what: str) -> list:
     if len(calls) != len(names):
-        raise AssertionError(f"a train step launched kernel 2 {len(calls)} times, expected {len(names)}")
-    return [(name, table, idx) for name, (table, idx) in zip(names, calls)]
+        raise AssertionError(f"{what} made {len(calls)} calls, expected {len(names)}")
+    return [(n, *c) for n, c in zip(names, calls)]
+
+
+def train_gather_inputs(cfg, vcfg, batch, vbatch, device) -> list:
+    """(name, table, idx) of every kernel-2 launch in one bf16 train step
+    of each family: the flagship's cluster-mean gather, its H/8 densify
+    and the densify's backward gather; voxel18's final densify at
+    (2, 168, 168) and its backward gather."""
+    from pillarnext_tpu_torch.ops import densify, scatter
+
+    with captured(scatter, "monotone_row_gather") as cluster:
+        dens = train_step_calls(cfg["model"], batch, device, densify, "monotone_row_gather")
+    voxel = train_step_calls(vcfg["model"], vbatch, device, densify, "monotone_row_gather")
+    return (named(("train_cluster_mean_gather", "train_densify_h8", "train_densify_backward"), cluster + dens,
+                  "a flagship train step's kernel 2")
+            + named(("train_voxel18_densify", "train_voxel18_densify_backward"), voxel,
+                    "a voxel18 train step's kernel 2"))
+
+
+def segment_sum_inputs(model, points, mask, vmodel, vpoints, vmask, cfg, vcfg, batch, vbatch, device) -> list:
+    """(name, x, seg, reduce) of kernel 3's segment sums (ops/scatter.py)
+    on the four main paths: the flagship's cluster mean and voxel18's
+    voxel mean in a serving frame and in a bf16 train step, and the ties
+    count of the flagship PFN's last-layer max in its backward."""
+    from pillarnext_tpu_torch.ops import scatter
+
+    with torch.inference_mode(), captured(scatter, "sorted_segment_bcast") as serving:
+        model.reader(points, mask)
+        vmodel.reader(vpoints, vmask)
+    train = train_step_calls(cfg["model"], batch, device, scatter, "sorted_segment_bcast")
+    vtrain = train_step_calls(vcfg["model"], vbatch, device, scatter, "sorted_segment_bcast")
+    return named(("serving_cluster_mean", "serving_voxel_mean", "train_cluster_mean", "train_pfn_max_ties",
+                  "train_voxel_mean"), serving + train + vtrain, "the segment sums")
 
 
 def check_gather(reader, points, mask, slot, cap, gen, device, records, path_cases):
     """Kernel 2 vs its plain version, bit-exact, at the main paths' shapes:
     the flagship serving shapes on random tables, and ``path_cases`` — the
-    tables and index streams of a train step and of the voxel18 densify, in
-    the dtypes those paths used."""
+    tables and index streams of a train step of each family and of the
+    voxel18 serving densify, in the dtypes those paths used."""
     from pillarnext_tpu_torch.ops.compact import invert_slot_map
     from pillarnext_tpu_torch.ops.gather import monotone_row_gather, monotone_row_gather_plain
 
@@ -330,16 +386,17 @@ def check_gather(reader, points, mask, slot, cap, gen, device, records, path_cas
         emit(rec)
         if not rec["bit_exact"]:
             raise AssertionError(f"monotone_row_gather is not bit-exact: {rec}")
+        records.setdefault("gather_cases", {})[name] = rec
         if name == "densify":
             records["monotone_row_gather"] = rec
-        if name == "voxel18_densify":
-            records["monotone_row_gather_voxel18"] = rec
 
 
-def check_segscan(train_slot, gen, device, records):
+def check_segscan(train_slot, gen, device, records, sum_cases):
     """Kernel 3 vs its plain version at the train shape (B = 4 x 300000
     points, 32 channels), on the train batch's own slot stream and on a
-    stream whose last segment holds half the rows (600k): max bit-exact, sum within 1e-5 of the
+    stream whose last segment holds half the rows (600k), and on
+    ``sum_cases``, the rows and slot streams of the segment sums the main
+    paths run (ops/scatter.py, f32): max bit-exact, sum within 1e-5 of the
     segment's sum of magnitudes in f32 (sums in another order; the plain
     version adds with atomics) and one bf16 rounding in bf16.  Each record
     carries the tile kernel's launch shape and the device launches of one
@@ -352,6 +409,42 @@ def check_segscan(train_slot, gen, device, records):
         vector_bytes,
     )
 
+    def check(case, x, seg, reduce):
+        got = sorted_segment_bcast(x, seg, reduce)
+        want = sorted_segment_bcast_plain(x, seg, reduce)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        (n, c), dtype, es = x.shape, x.dtype, x.element_size()
+        rec = {
+            "phase": "kernel_vs_plain", "kernel": "sorted_segment_bcast", "case": case,
+            "dtype": str(dtype), "reduce": reduce,
+            "shape": {"rows": n, "c": c, "segments": int(torch.unique_consecutive(seg).numel())},
+            "max_abs_err": float(err.max()), "bit_exact": torch.equal(got, want),
+        }
+        if reduce == "max":
+            ok, rec["tolerance"] = torch.equal(got, want), "bit-exact"
+        elif dtype == torch.float32:
+            mag = sorted_segment_bcast_plain(x.abs(), seg, "sum")
+            ok, rec["tolerance"] = bool((err <= 1e-5 * mag).all()), "<= 1e-5 of the segment's sum of |x|"
+            rec["max_err_over_magnitude"] = float((err / mag.clamp(min=1e-30)).max())
+        else:
+            ok, rec["tolerance"] = float(bf16_ulps(got, want).max()) <= 1.0, "<= 1 bf16 ulp"
+        rec.update({
+            "ms": median_ms(lambda: sorted_segment_bcast(x, seg, reduce)),
+            "plain_ms": median_ms(lambda: sorted_segment_bcast_plain(x, seg, reduce)),
+            "library_ms": None,
+            **bound(n * c * es * 2 + n * 4, float(n * c), dtype),
+            "launch_shape": segscan_launch_shape(dtype, reduce, vector_bytes(x, got)),
+            "device_launches_planned": device_launches(n),
+        })
+        rec.update(device_fields(lambda: sorted_segment_bcast(x, seg, reduce),
+                                 lambda: sorted_segment_bcast_plain(x, seg, reduce),
+                                 launches=device_launches(n)))
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"sorted_segment_bcast disagrees with its plain version: {rec}")
+        return rec
+
     n = train_slot.shape[0]
     half = n // 2  # 600k rows at the train shape
     giant = torch.cat([
@@ -362,42 +455,10 @@ def check_segscan(train_slot, gen, device, records):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(n, 32, generator=gen).to(device=device, dtype=dtype)
             for reduce in ("max", "sum"):
-                got = sorted_segment_bcast(x, seg, reduce)
-                want = sorted_segment_bcast_plain(x, seg, reduce)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs()
-                if reduce == "max":
-                    ok, tol = torch.equal(got, want), "bit-exact"
-                elif dtype == torch.float32:
-                    mag = sorted_segment_bcast_plain(x.abs(), seg, "sum")
-                    ok, tol = bool((err <= 1e-5 * mag).all()), "<= 1e-5 of the segment's sum of |x|"
-                    err_rel = float((err / mag.clamp(min=1e-30)).max())
-                else:
-                    ulps = bf16_ulps(got, want)
-                    ok, tol = float(ulps.max()) <= 1.0, "<= 1 bf16 ulp"
-                es = x.element_size()
-                rec = {
-                    "phase": "kernel_vs_plain", "kernel": "sorted_segment_bcast", "case": case,
-                    "dtype": str(dtype), "reduce": reduce,
-                    "shape": {"rows": n, "c": 32, "segments": int(torch.unique_consecutive(seg).numel())},
-                    "max_abs_err": float(err.max()), "bit_exact": torch.equal(got, want), "tolerance": tol,
-                    "ms": median_ms(lambda: sorted_segment_bcast(x, seg, reduce)),
-                    "plain_ms": median_ms(lambda: sorted_segment_bcast_plain(x, seg, reduce)),
-                    "library_ms": None,
-                    **bound(n * 32 * es * 2 + n * 4, n * 32.0, dtype),
-                    "launch_shape": segscan_launch_shape(dtype, reduce, vector_bytes(x, got)),
-                    "device_launches_planned": device_launches(n),
-                }
-                if reduce == "sum" and dtype == torch.float32:
-                    rec["max_err_over_magnitude"] = err_rel
-                rec.update(device_fields(lambda: sorted_segment_bcast(x, seg, reduce),
-                                         lambda: sorted_segment_bcast_plain(x, seg, reduce),
-                                         launches=device_launches(n)))
-                emit(rec)
-                if not ok:
-                    raise AssertionError(f"sorted_segment_bcast disagrees with its plain version: {rec}")
+                rec = check(case, x, seg, reduce)
                 if case == "train_slots" and dtype == torch.bfloat16 and reduce == "max":
                     records["sorted_segment_bcast"] = rec
+    records["segment_sums"] = {case: check(case, x, seg, reduce) for case, x, seg, reduce in sum_cases}
     max_broadcast_record(train_slot, gen, device)
 
 
@@ -596,7 +657,7 @@ def serving_path(cfg, model, pc_range, device):
           "launches": launches,
           "breakdown_ms": layer_breakdown(model, *frames[0], engine._operating_bucket()),
           "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20})
-    for name in ("pfn_two_layer", "monotone_row_gather"):
+    for name in ("pfn_two_layer", "monotone_row_gather", "sorted_segment_bcast"):
         if launches[name] == 0:
             raise AssertionError(f"the serving path never launched {name}")
     return frames, launches
@@ -662,8 +723,9 @@ def voxel_serving_path(cfg, device):
           "launches": launches,
           "breakdown_ms": layer_breakdown(model, *frames[0], engine._operating_bucket()),
           "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20})
-    if launches["monotone_row_gather"] == 0:
-        raise AssertionError("the voxel18 serving path never launched monotone_row_gather")
+    for name in ("monotone_row_gather", "sorted_segment_bcast"):
+        if launches[name] == 0:
+            raise AssertionError(f"the voxel18 serving path never launched {name}")
     return model, frames, launches
 
 
@@ -671,7 +733,8 @@ def voxel_f32_kernels_vs_plain(cfg, points, mask, device):
     """The f32 voxel18 backbone on one reader table with kernel 2 and with
     its plain version: the densify is an exact copy, so the BEV must be
     bit-identical.  The frame's detections, kernel vs plain, are reported
-    as a matched fraction only (the reader's mean adds with atomics)."""
+    as a matched fraction (the reader runs again in each predict; its
+    mean is the same bits on both routes)."""
     from pillarnext_tpu_torch.utils.builders import build_model
 
     model = build_model(dict(cfg["model"], dtype="float32"), device=device,
@@ -685,7 +748,7 @@ def voxel_f32_kernels_vs_plain(cfg, points, mask, device):
            "bev_max_abs_diff": float((bev - bev_plain).abs().max()),
            "bev_nonzero_share": float((bev != 0).float().mean()),
            "valid": [int(a["valid"][0].sum()), int(b["valid"][0].sum())],
-           "matched_fraction": matched_fraction(a, b)}
+           "matched_fraction": matched_fraction(a, b), "bit_identical": same_prediction(a, b)}
     emit(rec)
     if not rec["bev_bit_identical"]:
         raise AssertionError(f"voxel18 f32 BEV differs between kernel 2 and its plain version: {rec}")
@@ -695,28 +758,18 @@ def voxel_gather_inputs(model, points, mask) -> list:
     """(name, table, idx) of kernel 2's one launch in a bf16 voxel18
     forward: the densify at the final (2, 168, 168) grid."""
     from pillarnext_tpu_torch.ops import densify
-    from pillarnext_tpu_torch.ops.gather import monotone_row_gather
 
-    calls = []
-
-    def capture(table, idx):
-        calls.append((table.clone(), idx.clone()))
-        return monotone_row_gather(table, idx)
-
-    saved = densify.monotone_row_gather
-    densify.monotone_row_gather = capture
-    try:
-        with torch.inference_mode():
-            model.backbone(model.reader(points, mask))
-    finally:
-        densify.monotone_row_gather = saved
-    if len(calls) != 1:
-        raise AssertionError(f"a voxel18 forward launched kernel 2 {len(calls)} times, expected 1")
-    return [("voxel18_densify", *calls[0])]
+    with torch.inference_mode(), captured(densify, "monotone_row_gather") as calls:
+        model.backbone(model.reader(points, mask))
+    return named(("voxel18_densify",), calls, "a voxel18 forward's kernel 2")
 
 
-def train_path(cfg, batches, device, work_dir):
-    """The training main path, bf16, B = 4, through the port's Trainer."""
+def train_path(cfg, batches, device, work_dir, path: str, required: tuple):
+    """A training main path, bf16, B = 4, through the port's Trainer: its
+    record carries the step times, losses, the last step's tables (each
+    active count beside its rows, voxel18), peak memory, a breakdown and a
+    2-step device profile; it fails unless every kernel in ``required``
+    launched."""
     from pillarnext_tpu_torch.ops.gather import monotone_row_gather
     from pillarnext_tpu_torch.ops.pfn import pfn_two_layer
     from pillarnext_tpu_torch.ops.segscan import sorted_segment_bcast
@@ -737,45 +790,58 @@ def train_path(cfg, batches, device, work_dir):
     losses = [float(v) for v in trainer.epoch_losses]
     tel = {k: int(v) for k, v in trainer.last_scalars["telemetry"].items()}
     step_ms = [(b - a) * 1e3 for a, b in zip(loader.stamps[:-1], loader.stamps[1:])]
+    batch_size = int(batches[0]["points"].shape[0])
     rec = {
-        "phase": "main_path", "path": "train", "dtype": cfg["model"].get("dtype", "bfloat16"),
-        "batch_size": int(batches[0]["points"].shape[0]), "max_points": int(batches[0]["points"].shape[1]),
+        "phase": "main_path", "path": path, "dtype": cfg["model"].get("dtype", "bfloat16"),
+        "batch_size": batch_size, "max_points": int(batches[0]["points"].shape[1]),
         "points_per_scene": N_POINTS, "steps": len(step_ms), "losses": losses,
         "grad_norm_last": float(trainer.last_scalars["grad_norm"]),
         "step_ms": step_ms, "step_ms_median_after_first": statistics.median(step_ms[1:]),
         "telemetry_last_step": tel, "launches": launches,
         "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
-        "breakdown_ms": train_breakdown(model, opt, batches[0], device),
-        "profile": profile_train_steps(model, opt, batches, device),
     }
+    if "voxel_active" in tel:
+        rec["tables_last_step"] = table_report(model, tel, model.reader.capacity, batch_size)
+    rec["breakdown_ms"] = train_breakdown(model, opt, batches[0], device)
+    rec["profile"] = profile_train_steps(model, opt, batches, device)
     emit(rec)
     if len(losses) < TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"train path losses: {losses}")
-    for name in ("monotone_row_gather", "sorted_segment_bcast"):
+        raise AssertionError(f"{path} path losses: {losses}")
+    for name in required:
         if launches[name] == 0:
-            raise AssertionError(f"the train path never launched {name}")
+            raise AssertionError(f"the {path} path never launched {name}")
     return model, launches
 
 
-def f32_train_kernels_vs_plain(cfg, batch, device):
+def f32_train_kernels_vs_plain(cfg, batch, device, phase: str):
     """One f32 train step with the kernels and one with their plain
     versions, same weights and batch, PyTorch's deterministic algorithms
-    on.  Kernel 3's max and kernel 2's gathers are exact, so the losses
-    agree to 1e-6 relative; the gradients differ by kernel 3's ``sum``
-    order in the PFN backward: each tensor within 1e-3 of its largest
-    magnitude."""
+    on.  Kernel 3's max and kernel 2's gathers are exact and the segment
+    sums run the same way on both routes, so the losses agree to 1e-6
+    relative; the gradients differ by kernel 3's ``sum`` order in the
+    flagship PFN's backward: each tensor within 1e-3 of its largest
+    magnitude.  For voxel18 the backbone's output in train mode must also
+    be bit-identical on both routes."""
+    from pillarnext_tpu_torch.models.voxel_encoder import VoxelFeatureNet
     from pillarnext_tpu_torch.train.train_state import train_step
     from pillarnext_tpu_torch.train.trainer import batch_to_device
     from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
 
     cfg32 = dict(cfg["model"], dtype="float32")
     ex = batch_to_device(batch, device)
-    runs = []
+    runs, rec = [], {"phase": phase}
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for plain in (False, True):
             model = build_model(cfg32, device=device, generator=torch.Generator().manual_seed(0), train=True)
+            if isinstance(model.reader, VoxelFeatureNet) and not plain:
+                with torch.no_grad(), model.precision():
+                    sb = model.reader(ex["points"], ex["points_mask"])
+                    bev, bev_plain = model.backbone(sb), model.backbone(sb, plain=True)
+                rec.update(bev_shape=list(bev.shape), bev_bit_identical=torch.equal(bev, bev_plain),
+                           bev_max_abs_diff=float((bev - bev_plain).abs().max()))
+                del sb, bev, bev_plain
             opt, _ = build_optimizer(cfg, 10, list(model.parameters()))
             scalars, _ = train_step(model, opt, ex, plain=plain)
             runs.append((float(scalars["loss"]), {n: p.grad.clone() for n, p in model.named_parameters()}))
@@ -786,11 +852,12 @@ def f32_train_kernels_vs_plain(cfg, batch, device):
     (l_k, g_k), (l_p, g_p) = runs
     rel = {n: float((g_k[n] - g_p[n]).abs().max() / g_p[n].abs().max().clamp(min=1e-30)) for n in g_k}
     worst = max(rel, key=rel.get)
-    rec = {"phase": "f32_train_kernels_vs_plain", "loss_kernels": l_k, "loss_plain": l_p,
-           "loss_abs_diff": abs(l_k - l_p), "max_rel_grad_diff": rel[worst], "worst_tensor": worst,
-           "tolerance": "loss within 1e-6 relative; every gradient within 1e-3 of its largest magnitude"}
+    rec.update({"loss_kernels": l_k, "loss_plain": l_p,
+                "loss_abs_diff": abs(l_k - l_p), "max_rel_grad_diff": rel[worst], "worst_tensor": worst,
+                "grads_bit_identical": all(torch.equal(g_k[n], g_p[n]) for n in g_k),
+                "tolerance": "loss within 1e-6 relative; every gradient within 1e-3 of its largest magnitude"})
     emit(rec)
-    if abs(l_k - l_p) > 1e-6 * abs(l_p) or rel[worst] > 1e-3:
+    if abs(l_k - l_p) > 1e-6 * abs(l_p) or rel[worst] > 1e-3 or rec.get("bev_bit_identical") is False:
         raise AssertionError(f"f32 train step with kernels disagrees with plain: {rec}")
 
 
@@ -805,8 +872,6 @@ def main() -> None:
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
     # phase 1: the card
     smi = subprocess.run(
@@ -837,9 +902,9 @@ def main() -> None:
     model = build_model(cfg["model"], device=device, generator=torch.Generator().manual_seed(0))
     frames, serve_launches = serving_path(cfg["model"], model, pc_range, device)
 
-    # phase 4: how far the detections of one frame move (report only): f32
-    # and bf16 kernels vs plain versions, and bf16 kernels run twice (the
-    # cluster mean sums with atomics, so a repeat differs by ulps)
+    # phase 4: how far the detections of one frame move: f32 and bf16
+    # kernels vs plain versions (reported), and bf16 kernels run twice,
+    # which must give the same bits (the segment sums are deterministic)
     cfg32 = dict(cfg["model"], dtype="float32")
     model32 = build_model(cfg32, device=device, generator=torch.Generator().manual_seed(0))
     with torch.inference_mode():
@@ -849,7 +914,9 @@ def main() -> None:
     for name, a, b in (("f32_kernels_vs_plain", a32, b32), ("bf16_kernels_vs_plain", a16, b16),
                        ("bf16_kernels_repeat", a16, r16)):
         emit({"phase": name, "valid": [int(a["valid"][0].sum()), int(b["valid"][0].sum())],
-              "matched_fraction": matched_fraction(a, b)})
+              "matched_fraction": matched_fraction(a, b), "bit_identical": same_prediction(a, b)})
+    if not same_prediction(a16, r16):
+        raise AssertionError("two bf16 predicts of one frame differ: the serving path is not deterministic")
     del model, model32, frames
     torch.cuda.empty_cache()
 
@@ -868,20 +935,40 @@ def main() -> None:
     # phase 6: the training main path, bf16, B = 4, through the Trainer
     # (its checkpoint goes to a directory of the checkout that is removed)
     with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
-        train_model, train_launches = train_path(cfg, batches, device, work_dir)
+        train_model, train_launches = train_path(cfg, batches, device, work_dir, "train",
+                                                 ("monotone_row_gather", "sorted_segment_bcast"))
     del train_model
     torch.cuda.empty_cache()
 
     # phase 7: f32 train step, kernels vs plain versions
-    f32_train_kernels_vs_plain(cfg, batches[0], device)
+    f32_train_kernels_vs_plain(cfg, batches[0], device, "f32_train_kernels_vs_plain")
 
-    # phase 8: each kernel vs its plain version at the main paths' shapes (after
+    # phase 8: voxel18 training, bf16, B = 4 at the config's grid, through
+    # the Trainer; then an f32 step, kernels vs plain versions
+    t0 = time.perf_counter()
+    vbatches = synthetic_batches(vcfg, TRAIN_STEPS, batch_size, N_POINTS, seed=0)
+    emit({"phase": "train_data", "config": "voxel18", "batches": len(vbatches), "batch_size": batch_size,
+          "points_per_scene": N_POINTS, "max_points": int(vcfg["dataloader"]["max_points"]),
+          "host_seconds": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
+        train_model, vtrain_launches = train_path(vcfg, vbatches, device, work_dir, "train_voxel18",
+                                                  ("monotone_row_gather", "sorted_segment_bcast"))
+    del train_model
+    torch.cuda.empty_cache()
+    f32_train_kernels_vs_plain(vcfg, vbatches[0], device, "voxel18_f32_train_kernels_vs_plain")
+    torch.cuda.empty_cache()
+
+    # phase 9: each kernel vs its plain version at the main paths' shapes (after
     # the main paths, so that torch.profiler has not traced the process they run in)
     gen = torch.Generator().manual_seed(0)
     model = build_model(cfg["model"], device=device, generator=gen)
+    vmodel = build_model(vcfg["model"], device=device, generator=torch.Generator().manual_seed(0))
     points, mask = frame(pc_range, 0, device)
+    vpoints, vmask = frame(vcfg["model"]["reader"]["pc_range"], 0, device)
     records: dict = {}
-    train_cases = train_gather_inputs(cfg, batches[0], device)
+    train_cases = train_gather_inputs(cfg, vcfg, batches[0], vbatches[0], device)
+    sum_cases = segment_sum_inputs(model, points, mask, vmodel, vpoints, vmask, cfg, vcfg,
+                                   batches[0], vbatches[0], device)
     torch.cuda.empty_cache()
     with torch.inference_mode():
         slot, cap = check_pfn(model.reader, points, mask, gen, device, records)
@@ -892,13 +979,11 @@ def main() -> None:
         pmask = torch.from_numpy(batches[0]["points_mask"]).to(device)
         train_cap = int(cfg["model"]["reader"]["train_pillar_capacity"])
         train_slot = model.reader.decorate(pts, pmask, train_cap)[1]
-        check_segscan(train_slot, gen, device, records)
-        del pts, pmask, train_slot
+        check_segscan(train_slot, gen, device, records, sum_cases)
+        del pts, pmask, train_slot, sum_cases
 
-    # phase 9: where a serving frame's time goes on the device, for both
+    # phase 10: where a serving frame's time goes on the device, for both
     # serving paths at the reader's largest bucket (profiled last, as above)
-    vmodel = build_model(vcfg["model"], device=device, generator=torch.Generator().manual_seed(0))
-    vpoints, vmask = frame(vcfg["model"]["reader"]["pc_range"], 0, device)
     with torch.inference_mode():
         for path, mdl, (p, m) in (("serving", model, (points, mask)),
                                   ("serving_voxel18", vmodel, (vpoints, vmask))):
@@ -908,6 +993,12 @@ def main() -> None:
                   "reader_and_backbone": profile_device(lambda: mdl.backbone(mdl.reader(p, m)), 3)})
     del vmodel, vpoints, vmask
 
+    summary_keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "device_ms", "device_plain_ms", "device_library_ms")
+
+    def summary(rec):
+        return {k: rec[k] for k in summary_keys}
+
     def line(name, route, source, replaces, launches, **extra):
         rec = records[name]
         return {"name": name, "route": route, "source": source, "replaces": replaces,
@@ -916,22 +1007,26 @@ def main() -> None:
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
                 "device_ms": rec["device_ms"], "device_library_ms": rec["device_library_ms"], **extra}
 
-    gather_launches = {"serving": serve_launches["monotone_row_gather"],
-                       "serving_voxel18": voxel_launches["monotone_row_gather"],
-                       "train": train_launches["monotone_row_gather"]}
+    paths = {"serving": serve_launches, "serving_voxel18": voxel_launches, "train": train_launches,
+             "train_voxel18": vtrain_launches}
+    gather_launches = {p: n["monotone_row_gather"] for p, n in paths.items()}
+    bcast_launches = {p: n["sorted_segment_bcast"] for p, n in paths.items()}
+    cases = records["gather_cases"]
     kernels_line = [
         line("pfn_two_layer", "cuda", "pillarnext_tpu_torch/csrc/pfn.cu",
              "pillarnext_tpu/ops/pallas_pfn.py:93", serve_launches["pfn_two_layer"]),
         line("monotone_row_gather", "cuda", "pillarnext_tpu_torch/csrc/gather.cu",
              "pillarnext_tpu/ops/pallas_gather.py:60", sum(gather_launches.values()),
              launches_by_path=gather_launches,
-             voxel18_densify={k: records["monotone_row_gather_voxel18"][k] for k in (
-                 "shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                 "device_ms", "device_plain_ms", "device_library_ms")}),
+             voxel18_densify=summary(cases["voxel18_densify"]),
+             train_voxel18_densify=summary(cases["train_voxel18_densify"]),
+             train_voxel18_densify_backward=summary(cases["train_voxel18_densify_backward"])),
         line("sorted_segment_bcast", "cuda", "pillarnext_tpu_torch/csrc/segscan.cu",
-             "pillarnext_tpu/ops/pallas_segscan.py:124", train_launches["sorted_segment_bcast"],
-             launches_per_train_step=train_launches["sorted_segment_bcast"] / TRAIN_STEPS,
-             device_launches_per_call=records["sorted_segment_bcast"]["device_launches_per_call"]),
+             "pillarnext_tpu/ops/pallas_segscan.py:124", sum(bcast_launches.values()),
+             launches_by_path=bcast_launches,
+             launches_per_train_step={p: bcast_launches[p] / TRAIN_STEPS for p in ("train", "train_voxel18")},
+             device_launches_per_call=records["sorted_segment_bcast"]["device_launches_per_call"],
+             segment_sums={case: summary(rec) for case, rec in records["segment_sums"].items()}),
     ]
     foreign = sorted(
         m for m in sys.modules

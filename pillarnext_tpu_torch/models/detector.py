@@ -3,16 +3,36 @@
 Counterpart of ``SingleStageDetector`` (pillarnext_tpu/models/detector.py:18-52).
 ``model.train()`` selects the training forward of every submodule (batch
 statistics, the all-sparse backbone, dense head branches); ``loss`` is the
-training step's body.
+training step's body.  An f32 model runs its forward (and so ``loss``) and
+``predict`` under ``precision()``: full f32 convolutions and matmuls, not
+TF32, whatever the process-wide flags say.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
+import torch
 from torch import nn
 
 _PORTED_NMS = ("iou3d",)
+
+
+@contextlib.contextmanager
+def full_f32():
+    """TF32 off for cuDNN convolutions and CUDA matmuls inside the block;
+    the other cuDNN flags stay as they are, and every flag is restored on
+    exit."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    was = matmul.allow_tf32
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            matmul.allow_tf32 = was
 
 
 class SingleStageDetector(nn.Module):
@@ -31,6 +51,14 @@ class SingleStageDetector(nn.Module):
         self.head = head
         self.post_processing = post_processing
 
+    def precision(self):
+        """The math this model's forward, ``predict`` and backward run
+        under: ``full_f32()`` for an f32 model (the reader computes in
+        f32), PyTorch's flags as they stand for a bf16 one."""
+        if getattr(self.reader, "dtype", None) in (None, torch.float32):
+            return full_f32()
+        return contextlib.nullcontext()
+
     def extract_feat(self, points, mask, capacity=None, telemetry=None, plain=False):
         """(B, N, D) points + (B, N) mask -> NHWC features.  ``capacity``
         overrides the reader's table capacity; ``telemetry`` (a dict)
@@ -45,7 +73,8 @@ class SingleStageDetector(nn.Module):
 
     def forward(self, points, mask, capacity=None, telemetry=None, plain=False):
         """Dense head maps, one dict per task group."""
-        return self.head(self.extract_feat(points, mask, capacity, telemetry, plain))
+        with self.precision():
+            return self.head(self.extract_feat(points, mask, capacity, telemetry, plain))
 
     def loss(self, example: dict, telemetry=None, plain=False):
         """Train-mode forward + head loss -> (total loss, per-task log
@@ -54,14 +83,16 @@ class SingleStageDetector(nn.Module):
         data/assign.py (hm, ind, mask, cat, anno_box, gt_boxes)."""
         if not self.training:
             raise RuntimeError("SingleStageDetector.loss needs train mode (model.train())")
-        preds = self(example["points"], example["points_mask"], telemetry=telemetry, plain=plain)
-        return self.head.loss(example, preds)
+        with self.precision():
+            preds = self(example["points"], example["points_mask"], telemetry=telemetry, plain=plain)
+            return self.head.loss(example, preds)
 
     def predict(self, points, mask, capacity=None, telemetry=None, plain=False):
         """Fixed-size detections: box3d_lidar (B, D, 9), scores, label_preds,
         valid (B, D)."""
         cfg = self.post_processing
-        x = self.extract_feat(points, mask, capacity, telemetry, plain)
-        if cfg.get("candidate_sparse_head", False):
-            return self.head(x, test_cfg=cfg)
-        return self.head.predict(self.head(x), cfg)
+        with self.precision():
+            x = self.extract_feat(points, mask, capacity, telemetry, plain)
+            if cfg.get("candidate_sparse_head", False):
+                return self.head(x, test_cfg=cfg)
+            return self.head.predict(self.head(x), cfg)

@@ -1,8 +1,9 @@
 """Sparse ResNet backbones: the BEV ResNet (eval ``leading`` and train
-``all`` paths) and the fully sparse 3-D voxel ResNet (eval).
+``all`` paths) and the fully sparse 3-D voxel ResNet (eval and train).
 
 Counterpart of ``SparseResNet`` (pillarnext_tpu/models/resnet.py:445-805)
-and of ``SparseResNet3D``'s sparse forward (resnet.py:915-1144).
+and of ``SparseResNet3D``'s sparse forward (resnet.py:915-1144), which
+runs the same tables in eval and in training.
 
 Eval (``sparse_eval=True``, ``sparse_stages_eval="leading"``,
 ``masked_eval=True``): the leading stride-1 stages run as SubM convs over
@@ -85,11 +86,11 @@ def sparse_residual_block(block: ResidualBlock, x, valid, nbr):
     return torch.where(valid[:, None], torch.relu(y + x), 0.0)
 
 
-def sparse_strided_block(block: ConvBlock, x, out_valid, nbr_fwd, nbr_rev):
+def sparse_strided_block(conv: nn.Module, norm: BatchNorm, x, out_valid, nbr_fwd, nbr_rev):
     """Strided sparse conv + BN + ReLU into the dilated output table
     (resnet.py:160-180)."""
-    y = sparse_strided_conv(_with_dump_row(x), nbr_fwd, nbr_rev, _subm_kernel(block.conv))
-    y = block.norm(y, channel_dim=-1, valid=out_valid)
+    y = sparse_strided_conv(_with_dump_row(x), nbr_fwd, nbr_rev, _subm_kernel(conv))
+    y = norm(y, channel_dim=-1, valid=out_valid)
     return torch.where(out_valid[:, None], torch.relu(y), 0.0)
 
 
@@ -223,7 +224,8 @@ class SparseResNet(nn.Module):
                     sod, out_slot_id, slot_id, batch, spatial, (k, k), (s, s)
                 )
                 nbr = build_neighbor_table(out_sod, out_slot_id, out_sp, subm_offsets_2d(k), cap_out)
-                table = sparse_strided_block(stage[0], table, out_valid, nbr_fwd, nbr_rev)
+                table = sparse_strided_block(stage[0].conv, stage[0].norm, table, out_valid,
+                                             nbr_fwd, nbr_rev)
                 valid, sod, slot_id, spatial = out_valid, out_sod, out_slot_id, out_sp
             for block in stage[1:]:
                 table = sparse_residual_block(block, table, valid, nbr)
@@ -254,7 +256,17 @@ class SparseResNet3D(nn.Module):
     Each strided table has ``max(int(cap * stage_capacity_frac[i]), 4096)``
     rows, capped by its output grid (``cap``: the reader's table); the
     extra z-conv takes the entry after the stages' (or the last one).
-    Input: the voxel reader's SparseBEV over (D, H, W)."""
+    Input: the voxel reader's SparseBEV over (D, H, W).
+
+    Training (``self.training``) runs the same tables with batch
+    statistics over each table's active rows (JAX ``train=True``): the
+    strided convs and the extra z-conv get the reverse tap table their
+    backward gathers through (``build_down_neighbor_tables``), the SubM
+    convs their mirrored tap table, and the densify's backward is kernel 2
+    too.  No block is recomputed in the backward (JAX remats every block):
+    the autograd Functions keep only their input table, tap tables and
+    kernel, so each (rows, K * C) gather buffer lives only inside its
+    conv's forward or backward."""
 
     def __init__(
         self,
@@ -308,8 +320,6 @@ class SparseResNet3D(nn.Module):
         ``stage{i}_overflow`` of each strided stage and ``extra_active`` /
         ``extra_overflow`` as device scalars; ``plain`` keeps CUDA tensors
         on kernel 2's plain version."""
-        if self.training:
-            raise NotImplementedError("SparseResNet3D training not ported yet, see ROADMAP")
         if not isinstance(sb, SparseBEV) or len(sb.spatial) != 3:
             raise TypeError(
                 "SparseResNet3D takes the voxel reader's SparseBEV over (D, H, W) "
@@ -321,7 +331,8 @@ class SparseResNet3D(nn.Module):
         caps = self.table_capacities(cap, batch, spatial)
 
         def down(table, kernel_shape, stride, padding, name, conv, norm):
-            """One set-dilating strided conv block into a table of its own."""
+            """One set-dilating strided conv block into a table of its own;
+            in training with the reverse tap table of its backward."""
             nonlocal valid, sod, slot_id, spatial
             cap_out = caps[name]
             out_slot_id, out_sod, out_valid, out_sp, n_out = downsample_active_set(
@@ -329,10 +340,16 @@ class SparseResNet3D(nn.Module):
             )
             telemetry[f"{name}_active"] = n_out
             telemetry[f"{name}_overflow"] = torch.clamp(n_out - cap_out, min=0)
-            nbr_fwd = down_neighbor_table(
-                sod, out_slot_id, valid.shape[0], batch, spatial, kernel_shape, stride, padding
-            )
-            table = sparse_down_block_eval(conv, norm, table, out_valid, nbr_fwd)
+            if self.training:
+                nbr_fwd, nbr_rev = build_down_neighbor_tables(
+                    sod, out_slot_id, slot_id, batch, spatial, kernel_shape, stride, padding
+                )
+                table = sparse_strided_block(conv, norm, table, out_valid, nbr_fwd, nbr_rev)
+            else:
+                nbr_fwd = down_neighbor_table(
+                    sod, out_slot_id, valid.shape[0], batch, spatial, kernel_shape, stride, padding
+                )
+                table = sparse_down_block_eval(conv, norm, table, out_valid, nbr_fwd)
             valid, sod, slot_id, spatial = out_valid, out_sod, out_slot_id, out_sp
             return table
 

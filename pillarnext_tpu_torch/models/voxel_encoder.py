@@ -5,7 +5,11 @@ with ``output="sparse"``: every point gets a compact slot by its linear
 voxel id (one stable sort, ops/compact.py), the table holds the f32 mean of
 each voxel's raw point features cast to the model dtype, and the result is
 a SparseBEV over the (D, H, W) grid for the sparse 3-D backbone.  The
-reader has no parameters.
+reader has no parameters, so training runs the eval computation: the JAX
+reader ignores ``train`` and sizes its table by ``voxel_capacity`` in both
+modes (voxel_encoder.py:36-67), and so does this one.  The mean is
+``scatter.segment_mean`` over the slot-sorted points: the same bits on
+every run on the card.
 """
 
 from __future__ import annotations

@@ -6,6 +6,17 @@ functions that the training path differentiates are autograd Functions
 with the JAX package's VJPs: ``gather_segments`` (backward: a segment sum,
 scatter.py:55-104) and ``segment_max`` (backward: the cotangent split
 evenly among tied maxima, XLA's scatter-max rule).
+
+Every function here takes segment ids in ascending order, as every caller
+has them: ``compactify`` sorts the points stably and the readers reorder
+them by its ``order``, so the slot of each sorted point never decreases.
+Nothing checks the order (the tests do).  The sums run in the same order
+on every run: kernel 3's ``sum`` (ops/segscan.py, f32 accumulation, no
+atomics) gives every row its segment's sum, and each segment then takes
+its first row, found by a binary search over the sorted ids.  They never
+go through ``index_add_`` or ``scatter_reduce``, whose CUDA versions add
+with atomics in an order that changes from run to run.  The ``plain``
+routes of the callers compute them the same way.
 """
 
 from __future__ import annotations
@@ -13,19 +24,38 @@ from __future__ import annotations
 import torch
 
 from pillarnext_tpu_torch.ops.gather import monotone_row_gather
+from pillarnext_tpu_torch.ops.segscan import sorted_segment_bcast
+
+
+def _segment_starts(seg: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(num_segments + 1,) int64 row offsets: segment ``j`` holds rows
+    ``starts[j]:starts[j + 1]`` of the ascending (N,) int32 ``seg``."""
+    bounds = torch.arange(num_segments + 1, dtype=seg.dtype, device=seg.device)
+    return torch.searchsorted(seg, bounds)
+
+
+def _segment_sum(data: torch.Tensor, seg: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """Kernel 3's per-row segment sums, then each segment's first row (0
+    for an empty segment): a gather with one source row per segment."""
+    if data.shape[0] == 0:
+        return data.new_zeros((starts.shape[0] - 1, data.shape[1]))
+    rows = sorted_segment_bcast(data.contiguous(), seg, "sum")
+    first = rows.index_select(0, starts[:-1].clamp(max=rows.shape[0] - 1))
+    return torch.where((starts[1:] > starts[:-1])[:, None], first, 0.0)
 
 
 def segment_sum(data: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """(num_segments, C) sums of ``data`` rows per segment."""
-    out = data.new_zeros((num_segments, data.shape[1]))
-    return out.index_add_(0, seg.long(), data)
+    """(num_segments, C) sums of the f32/bf16 ``data`` rows per segment, for
+    an ascending (N,) int32 ``seg``; the same bits on every run."""
+    return _segment_sum(data, seg, _segment_starts(seg, num_segments))
 
 
 def segment_mean(data: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Per-segment mean; empty segments give 0."""
-    total = segment_sum(data, seg, num_segments)
-    count = segment_sum(data.new_ones((data.shape[0], 1)), seg, num_segments)
-    return total / count.clamp(min=1.0)
+    """Per-segment mean for an ascending ``seg``; empty segments give 0.
+    The counts come from the segment offsets, exactly."""
+    starts = _segment_starts(seg, num_segments)
+    count = (starts[1:] - starts[:-1]).to(data.dtype)[:, None]
+    return _segment_sum(data, seg, starts) / count.clamp(min=1.0)
 
 
 class _SegmentMax(torch.autograd.Function):
@@ -42,19 +72,18 @@ class _SegmentMax(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         data, seg, raw, finite = ctx.saved_tensors
-        seg = seg.long()
         g = torch.where(finite, g, 0.0)
-        won = data == raw.index_select(0, seg)
-        ties = torch.zeros(raw.shape, dtype=torch.float32, device=g.device).index_add_(
-            0, seg, won.float()
-        )
-        coef = torch.where(won, 1.0 / ties.index_select(0, seg), 0.0)
-        return (g.index_select(0, seg) * coef).to(data.dtype), None, None
+        won = data == raw.index_select(0, seg.long())
+        # each row's count of tied maxima in its segment
+        ties = sorted_segment_bcast(won.float(), seg, "sum")
+        coef = torch.where(won, 1.0 / ties, 0.0)
+        return (g.index_select(0, seg.long()) * coef).to(data.dtype), None, None
 
 
 def segment_max(data: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Per-segment max; empty (and non-finite) segments give 0.  Backward:
-    each segment's cotangent goes to its maxima, split evenly among ties."""
+    """Per-segment max for an ascending ``seg``; empty (and non-finite)
+    segments give 0.  Backward: each segment's cotangent goes to its
+    maxima, split evenly among ties."""
     return _SegmentMax.apply(data, seg, num_segments)
 
 
@@ -76,7 +105,8 @@ class _GatherSegments(torch.autograd.Function):
 def gather_segments(
     table: torch.Tensor, seg: torch.Tensor, zero_dump_row: bool = False, plain: bool = False
 ) -> torch.Tensor:
-    """``table[seg]`` with a segment-sum backward.  ``zero_dump_row``: the
+    """``table[seg]`` for an ascending ``seg``, with a segment-sum backward
+    (``segment_sum``).  ``zero_dump_row``: the
     caller asserts the last row is exactly zero, so the row gather (kernel 2
     on a CUDA tensor) may read the table without it and return zeros for
     the dump id — bit-identical.  ``plain`` keeps CUDA tensors on

@@ -126,7 +126,8 @@ def overflow_total(telemetry: dict) -> torch.Tensor:
 
 
 def train_step(model, optimizer: AdamW, batch: dict, plain: bool = False):
-    """One step: train-mode forward + loss, backward, clip + AdamW.
+    """One step: train-mode forward + loss, backward (under
+    ``model.precision()``, as the forward), clip + AdamW.
 
     Returns ({"loss", "grad_norm", "overflow", "telemetry"} as device
     scalars, per-task log dicts detached)."""
@@ -135,7 +136,8 @@ def train_step(model, optimizer: AdamW, batch: dict, plain: bool = False):
     loss, logs = model.loss(batch, telemetry=telemetry, plain=plain)
     for p in optimizer.params:
         p.grad = None
-    loss.backward()
+    with model.precision():
+        loss.backward()
     grad_norm = optimizer.step()
     scalars = {"loss": loss.detach(), "grad_norm": grad_norm,
                "overflow": overflow_total(telemetry), "telemetry": telemetry}

@@ -38,15 +38,21 @@ def build_model(model_cfg: dict, device="cuda:0", generator: torch.Generator | N
 
     ``model.dtype`` ('bfloat16' default, or 'float32') is the activation
     dtype of every submodule; parameters, BN statistics and decode/NMS stay
-    float32.  ``sync_batchnorm`` is dropped (one card; DDP is ROADMAP
-    work).  A pillar reader feeding a SparseResNet that opens with stride 1
+    float32.  A float32 model computes in full f32 on the card: its
+    ``forward``, ``loss`` and ``predict``, and ``train_step``'s backward,
+    run under ``model.precision()`` (models/detector.py), which turns TF32
+    off for cuDNN and CUDA matmuls inside those calls and restores the
+    flags after; building a model changes no process-wide flag.
+    ``sync_batchnorm`` is dropped (one card; DDP is ROADMAP work).  A pillar reader feeding a SparseResNet that opens with stride 1
     emits its compact table and the backbone runs sparse (the reference's
     sparse path); a voxel reader always emits its compact table for
-    SparseResNet3D.  ``train=True`` gives the reader the config's
-    ``train_pillar_capacity`` for its training forward (serving keeps
-    ``pillar_capacity``) and returns the model in train mode; otherwise in
-    eval mode.  With ``generator`` the parameters are drawn from it
-    (utils/weights.py: init_random); otherwise load weights afterwards.
+    SparseResNet3D, in eval and in training.  ``train=True`` gives a pillar
+    reader the config's ``train_pillar_capacity`` for its training forward
+    (serving keeps ``pillar_capacity``; the voxel reader keeps
+    ``voxel_capacity`` in both, as JAX does) and returns the model in train
+    mode; otherwise in eval mode.  With ``generator`` the parameters are
+    drawn from it (utils/weights.py: init_random); otherwise load weights
+    afterwards.
     """
     device = resolve_device(device)
     cfg = copy.deepcopy(model_cfg)
@@ -73,12 +79,10 @@ def build_model(model_cfg: dict, device="cuda:0", generator: torch.Generator | N
     ):
         rd.setdefault("output", "sparse")
         bb.setdefault("sparse_eval", True)
-    if reader_name == "VoxelFeatureNet":
-        if train:
-            raise NotImplementedError("voxel18 training not ported yet, see ROADMAP")
-        if backbone_name == "SparseResNet3D":
-            # the dense (B, 40, 1344, 1344, C) volume would not fit the card
-            rd.setdefault("output", "sparse")
+    if reader_name == "VoxelFeatureNet" and backbone_name == "SparseResNet3D":
+        # the dense (B, 40, 1344, 1344, C) volume would not fit the card; in
+        # training too (JAX utils/builders.py:85-93)
+        rd.setdefault("output", "sparse")
     check_targets(cfg)
     model = instantiate(cfg, registry=PORT_REGISTRY)
     if train and train_cap:

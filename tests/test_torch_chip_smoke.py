@@ -2,7 +2,8 @@
 replaced by a stand-in that loses records the way the real one at times
 does on the card: the marker kernels between calls cut a window into
 calls, only whole calls are counted, and a window with none is profiled
-again."""
+again.  Also the detection comparison: one prediction matches itself in
+full at 50 m coordinates."""
 
 from __future__ import annotations
 
@@ -96,3 +97,19 @@ def test_device_profile_fails_without_device_records(profiler):
     with pytest.raises(AssertionError, match="no whole call"):
         chip_smoke.device_profile(lambda: None, 3)
     assert len(opened) == chip_smoke.PROFILE_WINDOWS
+
+
+def test_matched_fraction_of_one_prediction_at_50_m_is_one():
+    """830 boxes with centres up to 50 m out, compared with themselves:
+    every box matches (cdist's matrix-product form put 9% of them more
+    than 1 cm from themselves), and the prediction is the same bits."""
+    g = torch.Generator().manual_seed(0)
+    pred = {"box3d_lidar": torch.rand(1, 830, 9, generator=g) * 100 - 50,
+            "label_preds": torch.randint(0, 10, (1, 830), generator=g),
+            "scores": torch.rand(1, 830, generator=g),
+            "valid": torch.ones(1, 830, dtype=torch.bool)}
+    assert chip_smoke.matched_fraction(pred, dict(pred)) == 1.0
+    assert chip_smoke.same_prediction(pred, {k: v.clone() for k, v in pred.items()})
+    moved = dict(pred, box3d_lidar=pred["box3d_lidar"] + torch.tensor([0.02] + [0.0] * 8))
+    assert chip_smoke.matched_fraction(pred, moved) == 0.0
+    assert not chip_smoke.same_prediction(pred, moved)

@@ -22,7 +22,12 @@ NaN and -inf inside a segment, misaligned rows, three device launches a
 call without a host synchronisation, and a sum run twice bit for bit;
 empty inputs and the overflow slot, a narrowed flagship whose
 detections on the card must match the CPU's, and one narrowed f32 train
-step on the card against the same step on the CPU.
+step on the card against the same step on the CPU.  Then: both readers
+bit-identical from call to call at full grids (the segment sums are
+kernel 3's, not atomics), an f32 model that keeps TF32 off by itself
+under PyTorch's default flags, a narrowed voxel18 f32 train step on the
+card against the CPU, and kernel 2 at voxel18 training's densify shapes.
+No test here sets a TF32 flag.
 """
 
 from __future__ import annotations
@@ -50,7 +55,6 @@ pytestmark = pytest.mark.cuda
 def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -239,7 +243,6 @@ def test_small_flagship_gpu_matches_cpu(device):
     from pillarnext_tpu_torch.utils.config import load_experiment
     from pillarnext_tpu_torch.utils.synth import lidar_like_points
 
-    torch.backends.cudnn.allow_tf32 = False
     pc = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
     flagship = (
         Path(__file__).resolve().parent.parent
@@ -319,8 +322,6 @@ def test_small_voxel18_gpu_matches_cpu(device):
     from pillarnext_tpu_torch.utils.config import load_experiment
     from pillarnext_tpu_torch.utils.synth import lidar_like_points
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     pc = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
     voxel18 = (
         Path(__file__).resolve().parent.parent
@@ -606,7 +607,6 @@ def test_small_flagship_train_step_gpu_matches_cpu(device):
     from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
     from pillarnext_tpu_torch.utils.config import load_experiment
 
-    torch.backends.cudnn.allow_tf32 = False
     pc = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
     flagship = (
         Path(__file__).resolve().parent.parent
@@ -635,3 +635,155 @@ def test_small_flagship_train_step_gpu_matches_cpu(device):
     assert gpu[0] == pytest.approx(cpu[0], rel=1e-5)
     assert gpu[1] == cpu[1]
     assert cpu[2] == (0, 0) and gpu[2][0] > 0 and gpu[2][1] > 0
+
+
+# ------------------------------------------ determinism, f32 math, voxel18 training
+
+REPO_CONFIGS = __import__("pathlib").Path(__file__).resolve().parent.parent / "pillarnext_tpu/configs/experiments"
+SMALL_VOXEL18 = [
+    "model.reader.pc_range=[-8.0,-8.0,-5.0,8.0,8.0,3.0]", "model.reader.voxel_size=[0.25,0.25,0.2]",
+    "model.reader.voxel_capacity=4096", "model.backbone.ds_num_filters=[8,12,16,16]",
+    "model.backbone.out_channels=16", "model.neck.in_channels=32",
+    "model.head.in_channels=32", "+model.head.share_conv_channel=32", "model.dtype=float32",
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_readers_are_bit_identical_from_call_to_call(device, dtype):
+    """Both readers at their configs' full grids on one 200k-point frame,
+    called twice: the voxel reader's mean table and the pillar reader's
+    decorated features (its cluster mean) are the same bits, because the
+    segment sums run through kernel 3's sorted sum instead of atomics."""
+    from pillarnext_tpu_torch.models.pillar_encoder import PillarFeatureNet
+    from pillarnext_tpu_torch.models.voxel_encoder import VoxelFeatureNet
+    from pillarnext_tpu_torch.utils.config import load_experiment
+    from pillarnext_tpu_torch.utils.synth import lidar_like_points
+
+    vr = load_experiment(REPO_CONFIGS / "nusc_det_voxel18_aspp_iou_sp.yaml")["model"]["reader"]
+    pr = load_experiment(REPO_CONFIGS / "nusc_det_pp18_aspp_iou_sp.yaml")["model"]["reader"]
+    pts, mask = lidar_like_points(1, 200_000, vr["pc_range"], seed=0)
+    pts, mask = torch.from_numpy(pts).to(device), torch.from_numpy(mask).to(device)
+    voxel = VoxelFeatureNet(vr["voxel_size"], vr["pc_range"], voxel_capacity=vr["voxel_capacity"],
+                            output="sparse", dtype=dtype)
+    pillar = PillarFeatureNet(5, pr["num_filters"], pr["voxel_size"], pr["pc_range"],
+                              pillar_capacity=pr["pillar_capacity"], output="sparse", dtype=dtype).to(device)
+    launches = sorted_segment_bcast.launches
+    with torch.inference_mode():
+        tables = [voxel(pts, mask).table for _ in range(2)]
+        feats = [pillar.decorate(pts, mask)[0] for _ in range(2)]
+    assert sorted_segment_bcast.launches == launches + 4
+    assert tables[0].dtype == feats[0].dtype == dtype
+    assert int((tables[0] != 0).any(1).sum()) > 100_000  # ~140k occupied voxels
+    assert torch.equal(tables[0], tables[1])
+    assert torch.equal(feats[0], feats[1])
+
+
+def test_f32_flagship_without_tf32_flags_matches_cpu(device):
+    """An f32 model turns TF32 off for its own calls: with PyTorch's flags
+    as they come (cuDNN TF32 on), the narrowed flagship's predict on the
+    card matches the CPU at the flagship e2e bars (box 1e-2, score 1e-3),
+    its convolutions ran with TF32 off, and the flags are as before after."""
+    from pillarnext_tpu_torch.utils.builders import build_model
+    from pillarnext_tpu_torch.utils.config import load_experiment
+    from pillarnext_tpu_torch.utils.synth import lidar_like_points
+
+    pc = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
+    cfg = load_experiment(REPO_CONFIGS / "nusc_det_pp18_aspp_iou_sp.yaml", [
+        f"model.reader.pc_range={pc}", "model.reader.voxel_size=[0.25,0.25,8.0]",
+        "model.reader.num_filters=[16,16]", "model.reader.pillar_capacity=4096",
+        "model.backbone.ds_num_filters=[16,32,32,32]", "model.backbone.num_input_features=16",
+        "+model.backbone.out_channels=32", "model.neck.in_channels=32",
+        "model.head.in_channels=32", "+model.head.share_conv_channel=32", "model.dtype=float32",
+    ])["model"]
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    assert flags == (True, False), "not PyTorch's default TF32 flags"
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    pts, mask = lidar_like_points(2, 3000, pc, seed=0)
+    pts, mask = torch.from_numpy(pts), torch.from_numpy(mask)
+    seen = []
+    with torch.inference_mode():
+        want = model.predict(pts, mask)
+        model = model.to(device)
+        hook = model.neck.register_forward_hook(
+            lambda *_: seen.append(torch.backends.cudnn.allow_tf32))
+        got = model.predict(pts.to(device), mask.to(device))
+        hook.remove()
+    assert seen == [False]
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+    got = {k: v.cpu() for k, v in got.items()}
+    assert int(want["valid"].sum()) >= 8
+    for i in range(want["valid"].shape[0]):
+        gv, wv = got["valid"][i], want["valid"][i]
+        assert int(gv.sum()) == int(wv.sum())
+        gb, wb = got["box3d_lidar"][i][gv].numpy(), want["box3d_lidar"][i][wv].numpy()
+        gl, wl = got["label_preds"][i][gv].numpy(), want["label_preds"][i][wv].numpy()
+        dist = np.abs(gb[:, None, :] - wb[None, :, :]).max(-1)
+        dist[gl[:, None] != wl[None, :]] = np.inf
+        pair = dist.argmin(1)
+        assert len(set(pair.tolist())) == len(pair)
+        np.testing.assert_allclose(gb, wb[pair], atol=1e-2)
+        np.testing.assert_allclose(got["scores"][i][gv].numpy(), want["scores"][i][wv].numpy()[pair],
+                                   atol=1e-3)
+
+
+def test_small_voxel18_train_step_gpu_matches_cpu(device):
+    """One f32 train step of the narrowed voxel18 on the card (kernel 2's
+    densify and its backward, kernel 3's voxel mean) and on the CPU (plain
+    versions), same weights and batch: loss within 1e-4 relative, every
+    gradient within 1e-3 of its largest CPU magnitude, same telemetry."""
+    from pillarnext_tpu_torch.data.synthetic import synthetic_batches
+    from pillarnext_tpu_torch.train.train_state import train_step
+    from pillarnext_tpu_torch.train.trainer import batch_to_device
+    from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    cfg = load_experiment(REPO_CONFIGS / "nusc_det_voxel18_aspp_iou_sp.yaml", SMALL_VOXEL18)
+    batch = synthetic_batches(cfg, 1, 2, 3000, seed=1, n_objects=4, max_points=4000)[0]
+    results = {}
+    for dev in ("cpu", device):
+        model = build_model(cfg["model"], device=dev, generator=torch.Generator().manual_seed(0), train=True)
+        opt, _ = build_optimizer(cfg, 10, list(model.parameters()))
+        launches = (monotone_row_gather.launches, sorted_segment_bcast.launches)
+        scalars, _ = train_step(model, opt, batch_to_device(batch, dev))
+        results[str(dev)] = (
+            float(scalars["loss"]),
+            {k: int(v) for k, v in scalars["telemetry"].items()},
+            (monotone_row_gather.launches - launches[0], sorted_segment_bcast.launches - launches[1]),
+            {n: p.grad.cpu() for n, p in model.named_parameters()},
+        )
+    cpu, gpu = results["cpu"], results[str(device)]
+    assert gpu[0] == pytest.approx(cpu[0], rel=1e-4)
+    assert gpu[1] == cpu[1] and gpu[1]["stage1_overflow"] == 0
+    assert cpu[2] == (0, 0) and gpu[2] == (2, 1)  # densify + its backward; the voxel mean
+    for name, g in cpu[3].items():
+        assert float((gpu[3][name] - g).abs().max()) <= 1e-3 * float(g.abs().max()) + 1e-6, name
+
+
+def test_densify_at_voxel18_training_shapes_is_bit_identical(device):
+    """Kernel 2 as voxel18 training's densify, at B = 4: 4 x 2 x 168 x 168
+    = 225,792 dense rows of 128 bf16 channels from a 191,692-row extra-conv
+    table, forward and backward, against the plain version bit for bit."""
+    from pillarnext_tpu_torch.ops.compact import invert_slot_map
+    from pillarnext_tpu_torch.ops.densify import densify
+
+    dense_rows, cap, c = 4 * 2 * 168 * 168, 191_692, 128
+    g = torch.Generator().manual_seed(11)
+    occupied = torch.sort(torch.randperm(dense_rows, generator=g)[:150_000]).values
+    slot_id = torch.cat([occupied, torch.full((cap - 150_000,), dense_rows)]).to(torch.int32).to(device)
+    slot_of_dense, valid = invert_slot_map(slot_id, dense_rows)
+    table = torch.randn(cap + 1, c, generator=g).to(device, torch.bfloat16)
+    table[-1] = 0
+    table[:cap][~valid] = 0
+    cot = torch.randn(dense_rows, c, generator=g).to(device, torch.bfloat16)
+    out = {}
+    for plain in (False, True):
+        t = table.clone().requires_grad_()
+        launches = monotone_row_gather.launches
+        dense = densify(t, slot_of_dense, slot_id, plain=plain)
+        dense.backward(cot)
+        out[plain] = (dense.detach(), t.grad, monotone_row_gather.launches - launches)
+    assert out[False][2] == 2 and out[True][2] == 0
+    assert out[False][0].shape == (dense_rows, c)
+    assert torch.equal(out[False][0], out[True][0])
+    assert torch.equal(out[False][1], out[True][1])
+    assert int((out[False][1][:cap][valid] != 0).any(1).sum()) == 150_000

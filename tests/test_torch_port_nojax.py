@@ -5,8 +5,9 @@ runs in a fresh interpreter that imports only the port: it reads the
 flagship YAML with the port's own config loader, builds the small
 flagship-structured model on the CPU, runs one predict and one train
 step, and then requires that no module named ``jax*``, ``flax*``,
-``pillarnext_tpu`` or ``pillarnext_tpu.*`` was imported.  A second
-interpreter does the same for a predict of the small voxel18 model.
+``pillarnext_tpu`` or ``pillarnext_tpu.*`` was imported.  Two more
+interpreters do the same for a predict of the small voxel18 model and for
+a voxel18 train step through the Trainer.
 """
 
 from __future__ import annotations
@@ -126,6 +127,60 @@ def test_port_voxel18_predict_imports_no_jax():
     assert (result["reader"], result["backbone"]) == ("VoxelFeatureNet", "SparseResNet3D")
     assert result["shape"] == [1, 10 * 83, 9]
     assert result["finite"]
+    assert result["loaded"] == []
+
+
+VOXEL_TRAIN_SCRIPT = r"""
+import json, sys, tempfile
+import torch
+from pillarnext_tpu_torch.data.synthetic import synthetic_batches
+from pillarnext_tpu_torch.train.trainer import Trainer
+from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
+from pillarnext_tpu_torch.utils.config import load_experiment
+
+pc = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
+cfg = load_experiment(sys.argv[1], [
+    f"model.reader.pc_range={pc}", "model.reader.voxel_size=[0.25,0.25,0.2]",
+    "model.reader.voxel_capacity=4096", "model.backbone.ds_num_filters=[8,12,16,16]",
+    "model.backbone.out_channels=16", "model.neck.in_channels=32",
+    "model.head.in_channels=32", "+model.head.share_conv_channel=32",
+])
+model = build_model(cfg["model"], device="cpu", generator=torch.Generator().manual_seed(0), train=True)
+batches = synthetic_batches(cfg, 1, 1, 2000, seed=0, n_objects=3, max_points=3000)
+opt, sched = build_optimizer(cfg, len(batches), list(model.parameters()))
+with tempfile.TemporaryDirectory() as work_dir:
+    trainer = Trainer(model, batches, opt, sched, max_epochs=1, work_dir=work_dir, device="cpu")
+    trainer.fit()
+
+def foreign(name):
+    top = name.split(".")[0]
+    return top.startswith("jax") or top.startswith("flax") or top == "pillarnext_tpu"
+
+print(json.dumps({
+    "backbone": type(model.backbone).__name__,
+    "loss_finite": bool(torch.isfinite(trainer.last_scalars["loss"])),
+    "step": trainer.step,
+    "telemetry": sorted(trainer.last_scalars["telemetry"]),
+    "loaded": sorted(m for m in sys.modules if foreign(m)),
+}))
+"""
+
+
+def test_port_voxel18_train_step_imports_no_jax():
+    """A bf16 voxel18 train step through the Trainer, in a fresh
+    interpreter that imports only the port."""
+    voxel18 = REPO / "pillarnext_tpu/configs/experiments/nusc_det_voxel18_aspp_iou_sp.yaml"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", VOXEL_TRAIN_SCRIPT, str(voxel18)],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["backbone"] == "SparseResNet3D"
+    assert result["loss_finite"]
+    assert result["step"] == 1
+    assert "stage1_overflow" in result["telemetry"] and "voxel_overflow" in result["telemetry"]
     assert result["loaded"] == []
 
 

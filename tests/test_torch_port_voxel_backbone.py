@@ -9,6 +9,7 @@ ATen) and every stage counter is equal.  Two grids: the 32 x 32 x 24 grid
 of tests/test_voxel_mirror_parity.py (final depth 1) and the same x/y
 with the config's 0.2 m over 8 m in z (40 levels, final depth 2, so the
 depth-major fold is exercised); and one case whose stage tables overflow.
+Training runs the same sparse forward; a dense input raises.
 """
 
 from __future__ import annotations
@@ -109,8 +110,17 @@ def test_sparse_resnet3d_stage_overflow_counters_match_jax():
 
 
 def test_sparse_resnet3d_train_and_dense_input_raise():
+    """Training runs the sparse forward (batch statistics update the
+    running ones); a dense volume still raises, in train and eval mode."""
+    voxel, pc, (d, h, w) = GRIDS["config_z_40x32x32"]
+    pts, mask = make_points(pc)
+    reader = VoxelFeatureNet(voxel, pc, voxel_capacity=2048, output="sparse")
     bb = SparseResNet3D(LAYERS, STRIDES, FILTERS, 5, out_channels=OUT_CH)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bb.train()(None)
-    with pytest.raises(TypeError, match="ROADMAP"):
-        bb.eval()(torch.zeros(1, 4, 4, 4, 5))
+    tel = {}
+    bev = bb.train()(reader(torch.from_numpy(pts), torch.from_numpy(mask)), telemetry=tel)
+    assert bev.shape == (2, h, w, d * OUT_CH) and bev.requires_grad
+    assert int(tel["extra_active"]) > 0
+    assert not torch.equal(bb.mapping.norm.running_mean, torch.zeros(OUT_CH))
+    for mode in (bb.train(), bb.eval()):
+        with pytest.raises(TypeError, match="ROADMAP"):
+            mode(torch.zeros(1, 4, 4, 4, 5))

@@ -150,9 +150,15 @@ def test_adaptive_predictor_repairs_a_stage_overflow():
 
 
 def test_build_model_voxel18_defaults_to_the_card_and_refuses_training():
+    """Eval and training both default to the card (and raise without
+    one); on the CPU, training builds the sparse voxel reader and the 3-D
+    backbone in train mode."""
     cfg = load_experiment(VOXEL18)["model"]
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="cuda"):
-            build_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(small_voxel18_cfg(), device="cpu", train=True)
+        for train in (False, True):
+            with pytest.raises(RuntimeError, match="cuda"):
+                build_model(cfg, train=train)
+    model = build_model(small_voxel18_cfg(), device="cpu", train=True)
+    assert model.training and model.backbone.training
+    assert model.reader.output == "sparse"
+    assert type(model.backbone).__name__ == "SparseResNet3D"
