@@ -13,6 +13,14 @@ width, random weights from a seed:
   (nusc_det_voxel18_aspp_iou_sp: 40 x 1344 x 1344 voxels, the fully
   sparse 3-D ResNet, kernel 2 as its final densify), with its f32 BEV
   held bit-identical between kernel 2 and its plain version;
+- serving_waymo_pp18, serving_waymo_voxel18, serving_mvf: the same for
+  the two-task Waymo configs (waymo_det_pp18_aspp_iou_car_sp and
+  waymo_det_voxel18_aspp_iou_car at 2048^2 and 40 x 2048^2, and the MVF
+  reader of waymo_det_mvf18_aspp_iou_car: pillar and cylinder views with
+  dense towers, kernels 2 and 3; its BN statistics set from the first
+  frame, ``calibrate_bn``), each frame's tables beside their rows;
+  the f32 MVF BEV held bit-identical between the kernels and their plain
+  versions, and two bf16 MVF predicts of one frame the same bits;
 - train: the port's Trainer, bf16, batch 4 of seeded synthetic scenes
   at the dataloader's 300000-point capacity, five steps (flagship);
 - train_voxel18: the same for voxel18 at its config's grid (the fully
@@ -63,6 +71,10 @@ import torch
 REPO = Path(__file__).resolve().parent
 FLAGSHIP = REPO / "pillarnext_tpu/configs/experiments/nusc_det_pp18_aspp_iou_sp.yaml"
 VOXEL18 = REPO / "pillarnext_tpu/configs/experiments/nusc_det_voxel18_aspp_iou_sp.yaml"
+WAYMO_PP18 = REPO / "pillarnext_tpu/configs/experiments/waymo_det_pp18_aspp_iou_car_sp.yaml"
+WAYMO_VOXEL18 = REPO / "pillarnext_tpu/configs/experiments/waymo_det_voxel18_aspp_iou_car.yaml"
+MVF = REPO / "pillarnext_tpu/configs/experiments/waymo_det_mvf18_aspp_iou_car.yaml"
+KERNELS = ("pfn_two_layer", "monotone_row_gather", "sorted_segment_bcast")
 N_POINTS = 200_000
 TIMED_RUNS = 25
 PROFILED_CALLS = 20
@@ -208,8 +220,9 @@ def same_prediction(a: dict, b: dict) -> bool:
     return all(torch.equal(a[k], b[k]) for k in a)
 
 
-def check_pfn(reader, points, mask, gen, device, records):
-    """Kernel 1 vs its plain version on the flagship's decorated points."""
+def check_pfn(reader, points, mask, gen, device, records, case: str = "serving"):
+    """Kernel 1 vs its plain version on a pillar reader's decorated points
+    of one frame (``case`` names the path)."""
     from pillarnext_tpu_torch.ops.pfn import pfn_launch_shape, pfn_two_layer, pfn_two_layer_plain
 
     df, c0, c1 = reader.num_input_features + 5, reader.num_filters[0] // 2, reader.num_filters[1]
@@ -237,7 +250,7 @@ def check_pfn(reader, points, mask, gen, device, records):
         nbytes += (df * c0 + 2 * c0 + 2 * c0 * c1 + 2 * c1) * 4
         flops = 2.0 * n_eff * (df * c0 + c0 * c1) + 2.0 * occupied * c0 * c1
         rec = {
-            "phase": "kernel_vs_plain", "kernel": "pfn_two_layer", "dtype": str(dtype),
+            "phase": "kernel_vs_plain", "kernel": "pfn_two_layer", "case": case, "dtype": str(dtype),
             "shape": {"points": n, "df": df, "c0": c0, "c1": c1, "cap": cap},
             "points_below_cap": n_eff, "occupied_pillars": occupied,
             "launch_shape": pfn_launch_shape(c0, c1, dtype),
@@ -264,7 +277,7 @@ def check_pfn(reader, points, mask, gen, device, records):
         if not (ok and zero_rows_equal):
             raise AssertionError(f"pfn_two_layer disagrees with its plain version: {rec}")
         out[str(dtype)] = rec
-    records["pfn_two_layer"] = out["torch.bfloat16"]
+    records.setdefault("pfn_cases", {})[case] = out["torch.bfloat16"]
     return slot, cap
 
 
@@ -396,7 +409,9 @@ def check_segscan(train_slot, gen, device, records, sum_cases):
     points, 32 channels), on the train batch's own slot stream and on a
     stream whose last segment holds half the rows (600k), and on
     ``sum_cases``, the rows and slot streams of the segment sums the main
-    paths run (ops/scatter.py, f32): max bit-exact, sum within 1e-5 of the
+    paths run (ops/scatter.py, f32; beside each, the device time of
+    ``torch.segment_reduce``, one call that computes the same sums one row
+    per segment): max bit-exact, sum within 1e-5 of the
     segment's sum of magnitudes in f32 (sums in another order; the plain
     version adds with atomics) and one bf16 rounding in bf16.  Each record
     carries the tile kernel's launch shape and the device launches of one
@@ -409,7 +424,7 @@ def check_segscan(train_slot, gen, device, records, sum_cases):
         vector_bytes,
     )
 
-    def check(case, x, seg, reduce):
+    def check(case, x, seg, reduce, library=None):
         got = sorted_segment_bcast(x, seg, reduce)
         want = sorted_segment_bcast_plain(x, seg, reduce)
         torch.cuda.synchronize()
@@ -432,13 +447,13 @@ def check_segscan(train_slot, gen, device, records, sum_cases):
         rec.update({
             "ms": median_ms(lambda: sorted_segment_bcast(x, seg, reduce)),
             "plain_ms": median_ms(lambda: sorted_segment_bcast_plain(x, seg, reduce)),
-            "library_ms": None,
+            "library_ms": median_ms(library) if library is not None else None,
             **bound(n * c * es * 2 + n * 4, float(n * c), dtype),
             "launch_shape": segscan_launch_shape(dtype, reduce, vector_bytes(x, got)),
             "device_launches_planned": device_launches(n),
         })
         rec.update(device_fields(lambda: sorted_segment_bcast(x, seg, reduce),
-                                 lambda: sorted_segment_bcast_plain(x, seg, reduce),
+                                 lambda: sorted_segment_bcast_plain(x, seg, reduce), library,
                                  launches=device_launches(n)))
         emit(rec)
         if not ok:
@@ -458,7 +473,15 @@ def check_segscan(train_slot, gen, device, records, sum_cases):
                 rec = check(case, x, seg, reduce)
                 if case == "train_slots" and dtype == torch.bfloat16 and reduce == "max":
                     records["sorted_segment_bcast"] = rec
-    records["segment_sums"] = {case: check(case, x, seg, reduce) for case, x, seg, reduce in sum_cases}
+
+    def segment_reduce(x, seg):
+        """The library call that computes ``scatter.segment_sum`` (one row
+        per occupied segment) in one call."""
+        lengths = torch.unique_consecutive(seg, return_counts=True)[1]
+        return lambda: torch.segment_reduce(x, "sum", lengths=lengths, unsafe=True)
+
+    records["segment_sums"] = {case: check(case, x, seg, reduce, segment_reduce(x, seg))
+                               for case, x, seg, reduce in sum_cases}
     max_broadcast_record(train_slot, gen, device)
 
 
@@ -486,22 +509,51 @@ def max_broadcast_record(seg, gen, device):
           "kernel3_share": kernel_ms / prof["device_ms"]})
 
 
-def layer_breakdown(model, points, mask, capacity):
-    """CUDA-synchronised host time of each layer of one predict (ms)."""
-    from pillarnext_tpu_torch.core import nms
+def synced_ms(fn):
+    """(fn(), its CUDA-synchronised host time in ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
+
+@contextlib.contextmanager
+def span_timer(spans: dict):
+    """Inside the block, the CUDA-synchronised host time from the start of
+    module ``first`` to the end of module ``last`` for each ``name: (first,
+    last)`` of ``spans``, summed into the yielded dict (ms)."""
+    times, handles = {name: 0.0 for name in spans}, []
+    for name, (first, last) in spans.items():
+        start = {}
+
+        def pre(*_, name=name, start=start):
+            torch.cuda.synchronize()
+            start[name] = time.perf_counter()
+
+        def post(*_, name=name, start=start):
+            torch.cuda.synchronize()
+            times[name] += (time.perf_counter() - start.pop(name)) * 1e3
+
+        handles += [first.register_forward_pre_hook(pre), last.register_forward_hook(post)]
+    try:
+        yield times
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def layer_breakdown(model, points, mask, capacity):
+    """CUDA-synchronised host time of each layer of one predict (ms); an
+    MVF reader also split into its views (each view's dense tower apart)
+    and its point-wise MLPs."""
+    from pillarnext_tpu_torch.core import nms
 
     nms_ms = []
     rotated_nms = nms.rotated_nms
 
     def timed_nms(*args):
-        out, ms = timed(lambda: rotated_nms(*args))
+        out, ms = synced_ms(lambda: rotated_nms(*args))
         nms_ms.append(ms)
         return out
 
@@ -513,33 +565,38 @@ def layer_breakdown(model, points, mask, capacity):
         def head(x):
             return model.head.predict(model.head(x), cfg)
 
+    reader, spans = model.reader, {}
+    if type(reader).__name__ == "MVFFeatureNet":
+        for view in ("pillar_view", "cylinder_view"):
+            mod = getattr(reader, view)
+            spans[view] = (mod, mod)
+            spans[f"{view}_tower"] = (mod.blocks[0][0], mod.blocks[-1][-1])
+        spans["pointnets"] = (reader.pointnet1, reader.pointnet2)
     tel = {}
     with torch.inference_mode():
-        sb, reader_ms = timed(lambda: model.reader(points, mask, capacity=capacity, telemetry=tel))
-        x, backbone_ms = timed(lambda: model.backbone(sb))
-        x, neck_ms = timed(lambda: model.neck(x))
+        with span_timer(spans) as reader_parts:
+            x, reader_ms = synced_ms(lambda: model.reader(points, mask, capacity=capacity, telemetry=tel))
+        backbone_ms = None
+        if model.backbone is not None:
+            x, backbone_ms = synced_ms(lambda: model.backbone(x))
+        x, neck_ms = synced_ms(lambda: model.neck(x))
         nms.rotated_nms = timed_nms
         try:
-            _, head_ms = timed(lambda: head(x))
+            _, head_ms = synced_ms(lambda: head(x))
         finally:
             nms.rotated_nms = rotated_nms
-    return {
-        "reader": reader_ms, "backbone": backbone_ms, "neck": neck_ms,
-        "head_decode_nms": head_ms, "of_which_nms": sum(nms_ms),
-    }
+    out = {"reader": reader_ms, "backbone": backbone_ms, "neck": neck_ms,
+           "head_decode_nms": head_ms, "of_which_nms": sum(nms_ms)}
+    if spans:
+        out["reader_parts"] = reader_parts
+    return out
 
 
 def train_breakdown(model, optimizer, batch, device):
     """CUDA-synchronised host time of each part of one train step (ms)."""
     from pillarnext_tpu_torch.train.trainer import batch_to_device
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
+    timed = synced_ms
     model.train()
     ex, h2d_ms = timed(lambda: batch_to_device(batch, device))
     sb, reader_ms = timed(lambda: model.reader(ex["points"], ex["points_mask"]))
@@ -619,94 +676,110 @@ class TimedLoader:
         self.stamps.append(time.perf_counter())
 
 
-def serving_path(cfg, model, pc_range, device):
-    """The serving main path, bf16, through AdaptivePredictor."""
+def calibrate_bn(model, points, mask) -> None:
+    """Set the running statistics of every BatchNorm of ``model`` to those
+    of its input in one predict of (points, mask), layer by layer (each BN
+    normalises with the statistics just set, so the next layer sees what a
+    trained model's would), over the valid rows where the layer masks its
+    statistics.  MVF's raw features hold phi in degrees and rho in metres:
+    with identity statistics, random weights drive its bf16 activations
+    through the neck to box sizes whose exp overflows."""
+    from pillarnext_tpu_torch.models.layers import BatchNorm
+
+    def set_statistics(bn, args, kwargs):
+        x = args[0]
+        channel_dim = kwargs.get("channel_dim", args[1] if len(args) > 1 else 1)
+        xf = x.float().movedim(channel_dim, -1).reshape(-1, x.shape[channel_dim])
+        if kwargs.get("valid") is not None:
+            xf = xf[kwargs["valid"].reshape(-1)]
+        bn.running_mean.copy_(xf.mean(0))
+        bn.running_var.copy_(xf.var(0, unbiased=False))
+
+    handles = [m.register_forward_pre_hook(set_statistics, with_kwargs=True)
+               for m in model.modules() if isinstance(m, BatchNorm)]
+    try:
+        with torch.no_grad():
+            model.predict(points, mask)
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def serving_model(model_cfg, device):
+    """A bf16 serving model with random weights from seed 0; an MVF model's
+    BN statistics set from the frame of seed 0 (``calibrate_bn``)."""
+    from pillarnext_tpu_torch.utils.builders import build_model
+
+    model = build_model(model_cfg, device=device, generator=torch.Generator().manual_seed(0))
+    if type(model.reader).__name__ == "MVFFeatureNet":
+        calibrate_bn(model, *frame(model_cfg["reader"]["pc_range"], 0, device))
+    return model
+
+
+def kernel_counters():
+    """The three kernel wrappers, whose ``launches`` count their launches."""
     from pillarnext_tpu_torch.ops.gather import monotone_row_gather
     from pillarnext_tpu_torch.ops.pfn import pfn_two_layer
     from pillarnext_tpu_torch.ops.segscan import sorted_segment_bcast
-    from pillarnext_tpu_torch.serving import AdaptivePredictor
 
-    engine = AdaptivePredictor(model)
-    frames = [frame(pc_range, seed, device) for seed in (0, 1, 2)]
-    counters = (pfn_two_layer, monotone_row_gather, sorted_segment_bcast)
-    for k in counters:
-        k.launches = 0
-    engine.warmup(*frames[0])
-    per_frame = []
-    for seed, (p, m) in zip((0, 1, 2), frames):
-        out = engine.predict(p, m)
-        d = 10 * int(cfg["post_processing"]["nms"]["nms_post_max_size"])
-        for key in ("box3d_lidar", "scores", "label_preds", "valid"):
-            if tuple(out[key].shape[:2]) != (1, d):
-                raise AssertionError(f"{key} has shape {tuple(out[key].shape)}, expected (1, {d}, ...)")
-        if not (torch.isfinite(out["box3d_lidar"]).all() and torch.isfinite(out["scores"]).all()):
-            raise AssertionError(f"non-finite detections for frame seed {seed}")
-        per_frame.append({"seed": seed, "valid": int(out["valid"].sum())})
-    latencies = []
-    for _ in range(LATENCY_FRAMES):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.predict(*frames[0])
-        torch.cuda.synchronize()
-        latencies.append((time.perf_counter() - t0) * 1e3)
-    launches = {k.__name__: k.launches for k in counters}
-    emit({"phase": "main_path", "path": "serving", "dtype": "bfloat16", "frames": per_frame,
-          "buckets": list(engine.buckets), "operating_bucket": engine._operating_bucket(),
-          "peak_required": engine.peak_required, "repaired": engine.repaired,
-          "latency_ms_median": statistics.median(latencies), "latency_ms": latencies,
-          "launches": launches,
-          "breakdown_ms": layer_breakdown(model, *frames[0], engine._operating_bucket()),
-          "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20})
-    for name in ("pfn_two_layer", "monotone_row_gather", "sorted_segment_bcast"):
-        if launches[name] == 0:
-            raise AssertionError(f"the serving path never launched {name}")
-    return frames, launches
+    return pfn_two_layer, monotone_row_gather, sorted_segment_bcast
 
 
 def table_report(model, tel: dict, bucket: int, batch: int = 1) -> dict:
-    """Each compact table of a voxel18 predict: its active count (the
-    reader's voxels, each strided stage's sites) beside its rows."""
-    grid = model.reader.grid
-    spatial = (grid.size_z, grid.size_y, grid.size_x)
-    cap = min(bucket * batch, grid.num_voxels * batch)
-    caps = {"voxel": cap, **model.backbone.table_capacities(cap, batch, spatial)}
+    """Each compact table of a predict or a train step: its active count
+    beside its rows.  Pillar reader: the pillar table; MVF: the pillar and
+    the cylinder tables; voxel18: the reader's voxels and each strided
+    stage's sites."""
+    reader = model.reader
+    kind = type(reader).__name__
+    if kind == "VoxelFeatureNet":
+        grid = reader.grid
+        spatial = (grid.size_z, grid.size_y, grid.size_x)
+        cap = min(bucket * batch, grid.num_voxels * batch)
+        caps = {"voxel": cap, **model.backbone.table_capacities(cap, batch, spatial)}
+    elif kind == "MVFFeatureNet":
+        caps = {"pillar": min(bucket * batch, reader.pillar_grid.num_pillars * batch),
+                "cylinder": min(reader.cylinder_capacity * batch, reader.cylinder_grid.num_pillars * batch)}
+    else:
+        caps = {"pillar": min(bucket * batch, reader.grid.num_pillars * batch)}
     return {name: {"active": int(tel[f"{name}_active"]), "capacity": c,
                    "overflow": int(tel[f"{name}_overflow"])} for name, c in caps.items()}
 
 
-def voxel_serving_path(cfg, device):
-    """The voxel18 serving main path, bf16, batch 1, through
-    AdaptivePredictor at the config's 40 x 1344 x 1344 grid."""
-    from pillarnext_tpu_torch.ops.gather import monotone_row_gather
-    from pillarnext_tpu_torch.ops.pfn import pfn_two_layer
-    from pillarnext_tpu_torch.ops.segscan import sorted_segment_bcast
+def serving_path(path: str, model_cfg, model, device, required: tuple):
+    """A serving main path, bf16, batch 1, through AdaptivePredictor at the
+    config's full grid: per frame the valid count, the bucket it ran at,
+    whether it was repaired and each table's active count beside its rows;
+    the latency median, a breakdown, peak memory and the launches; fails
+    unless every kernel in ``required`` launched."""
     from pillarnext_tpu_torch.serving import AdaptivePredictor
-    from pillarnext_tpu_torch.utils.builders import build_model
 
-    pc_range = cfg["model"]["reader"]["pc_range"]
-    model = build_model(cfg["model"], device=device, generator=torch.Generator().manual_seed(0))
+    pc_range = model_cfg["reader"]["pc_range"]
     engine = AdaptivePredictor(model)
     frames = [frame(pc_range, seed, device) for seed in (0, 1, 2)]
-    counters = (pfn_two_layer, monotone_row_gather, sorted_segment_bcast)
+    counters = kernel_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in counters:
         k.launches = 0
     engine.warmup(*frames[0])
     per_frame = []
-    d = 10 * int(cfg["model"]["post_processing"]["nms"]["nms_post_max_size"])
+    d = sum(len(t) for t in model_cfg["head"]["tasks"]) * int(model_cfg["post_processing"]["nms"]["nms_post_max_size"])
     for seed, (p, m) in zip((0, 1, 2), frames):
-        out = engine.predict(p, m)
+        repaired = engine.repaired
+        pending = engine(p, m)
+        out = engine.resolve([pending])[0]
+        bucket = pending.bucket if engine.repaired == repaired else engine.buckets[-1]
         for key in ("box3d_lidar", "scores", "label_preds", "valid"):
             if tuple(out[key].shape[:2]) != (1, d):
-                raise AssertionError(f"voxel18 {key} has shape {tuple(out[key].shape)}, expected (1, {d}, ...)")
+                raise AssertionError(f"{path}: {key} has shape {tuple(out[key].shape)}, expected (1, {d}, ...)")
         if not (torch.isfinite(out["box3d_lidar"]).all() and torch.isfinite(out["scores"]).all()):
-            raise AssertionError(f"voxel18: non-finite detections for frame seed {seed}")
-        bucket = engine._operating_bucket()
+            raise AssertionError(f"{path}: non-finite detections for frame seed {seed}")
         tel = {}
         with torch.inference_mode():
             model.predict(p, m, capacity=bucket, telemetry=tel)
-        per_frame.append({"seed": seed, "valid": int(out["valid"].sum()), "bucket": bucket,
+        per_frame.append({"seed": seed, "points": int(m.sum()), "valid": int(out["valid"].sum()),
+                          "bucket": bucket, "repaired": engine.repaired > repaired,
                           "tables": table_report(model, tel, bucket)})
     latencies = []
     for _ in range(LATENCY_FRAMES):
@@ -716,52 +789,60 @@ def voxel_serving_path(cfg, device):
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
     launches = {k.__name__: k.launches for k in counters}
-    emit({"phase": "main_path", "path": "serving_voxel18", "dtype": "bfloat16", "frames": per_frame,
+    emit({"phase": "main_path", "path": path, "dtype": "bfloat16", "frames": per_frame,
           "buckets": list(engine.buckets), "operating_bucket": engine._operating_bucket(),
           "peak_required": engine.peak_required, "repaired": engine.repaired,
           "latency_ms_median": statistics.median(latencies), "latency_ms": latencies,
           "launches": launches,
           "breakdown_ms": layer_breakdown(model, *frames[0], engine._operating_bucket()),
           "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20})
-    for name in ("monotone_row_gather", "sorted_segment_bcast"):
+    for name in required:
         if launches[name] == 0:
-            raise AssertionError(f"the voxel18 serving path never launched {name}")
-    return model, frames, launches
+            raise AssertionError(f"the {path} path never launched {name}")
+    return frames, launches
 
 
-def voxel_f32_kernels_vs_plain(cfg, points, mask, device):
-    """The f32 voxel18 backbone on one reader table with kernel 2 and with
-    its plain version: the densify is an exact copy, so the BEV must be
-    bit-identical.  The frame's detections, kernel vs plain, are reported
-    as a matched fraction (the reader runs again in each predict; its
-    mean is the same bits on both routes)."""
+def f32_bev_kernels_vs_plain(phase: str, model_cfg, points, mask, device):
+    """The f32 BEV (the reader's output, through the backbone where there is
+    one) of one frame with the kernels and with their plain versions: kernel
+    2 is an exact copy and kernel 3's sums run the same way on both routes,
+    so the BEV must be bit-identical.  The frame's detections, kernel vs
+    plain, are reported as a matched fraction and bit identity."""
     from pillarnext_tpu_torch.utils.builders import build_model
 
-    model = build_model(dict(cfg["model"], dtype="float32"), device=device,
+    model = build_model(dict(model_cfg, dtype="float32"), device=device,
                         generator=torch.Generator().manual_seed(0))
-    with torch.inference_mode():
-        sb = model.reader(points, mask)
-        bev, bev_plain = model.backbone(sb), model.backbone(sb, plain=True)
+
+    def bev(plain):
+        x = model.reader(points, mask, plain=plain)
+        return x if model.backbone is None else model.backbone(x, plain=plain)
+
+    with torch.inference_mode(), model.precision():
+        bev_k, bev_plain = bev(False), bev(True)
         a, b = model.predict(points, mask), model.predict(points, mask, plain=True)
-    rec = {"phase": "voxel18_f32_kernels_vs_plain", "bev_shape": list(bev.shape),
-           "bev_bit_identical": torch.equal(bev, bev_plain),
-           "bev_max_abs_diff": float((bev - bev_plain).abs().max()),
-           "bev_nonzero_share": float((bev != 0).float().mean()),
+    rec = {"phase": phase, "bev_shape": list(bev_k.shape),
+           "bev_bit_identical": torch.equal(bev_k, bev_plain),
+           "bev_max_abs_diff": float((bev_k - bev_plain).abs().max()),
+           "bev_nonzero_share": float((bev_k != 0).float().mean()),
            "valid": [int(a["valid"][0].sum()), int(b["valid"][0].sum())],
            "matched_fraction": matched_fraction(a, b), "bit_identical": same_prediction(a, b)}
     emit(rec)
     if not rec["bev_bit_identical"]:
-        raise AssertionError(f"voxel18 f32 BEV differs between kernel 2 and its plain version: {rec}")
+        raise AssertionError(f"{phase}: the f32 BEV differs between the kernels and their plain versions: {rec}")
 
 
-def voxel_gather_inputs(model, points, mask) -> list:
-    """(name, table, idx) of kernel 2's one launch in a bf16 voxel18
-    forward: the densify at the final (2, 168, 168) grid."""
-    from pillarnext_tpu_torch.ops import densify
+def predict_kernel_inputs(model, points, mask, gathers: tuple, densifies: tuple, sums: tuple):
+    """The arguments of kernels 2 and 3 in one bf16 predict, named: (name,
+    table, idx) of each row gather in ``ops/scatter.py`` (``gathers``) and
+    in ``ops/densify.py`` (``densifies``), in call order, and (name, x,
+    seg, reduce) of each segment sum (``sums``)."""
+    from pillarnext_tpu_torch.ops import densify, scatter
 
-    with torch.inference_mode(), captured(densify, "monotone_row_gather") as calls:
-        model.backbone(model.reader(points, mask))
-    return named(("voxel18_densify",), calls, "a voxel18 forward's kernel 2")
+    with (torch.inference_mode(), captured(scatter, "monotone_row_gather") as g,
+          captured(densify, "monotone_row_gather") as d, captured(scatter, "sorted_segment_bcast") as ss):
+        model.predict(points, mask)
+    return (named(gathers, g, "the predict's row gathers") + named(densifies, d, "the predict's densifies"),
+            named(sums, ss, "the predict's segment sums"))
 
 
 def train_path(cfg, batches, device, work_dir, path: str, required: tuple):
@@ -770,9 +851,6 @@ def train_path(cfg, batches, device, work_dir, path: str, required: tuple):
     active count beside its rows, voxel18), peak memory, a breakdown and a
     2-step device profile; it fails unless every kernel in ``required``
     launched."""
-    from pillarnext_tpu_torch.ops.gather import monotone_row_gather
-    from pillarnext_tpu_torch.ops.pfn import pfn_two_layer
-    from pillarnext_tpu_torch.ops.segscan import sorted_segment_bcast
     from pillarnext_tpu_torch.train.trainer import Trainer
     from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
 
@@ -781,7 +859,7 @@ def train_path(cfg, batches, device, work_dir, path: str, required: tuple):
     loader = TimedLoader(batches)
     trainer = Trainer(model, loader, opt, sched, max_epochs=1, log_every_niters=1,
                       work_dir=work_dir, device=device)
-    counters = (pfn_two_layer, monotone_row_gather, sorted_segment_bcast)
+    counters = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
     for k in counters:
         k.launches = 0
@@ -900,7 +978,7 @@ def main() -> None:
 
     # phase 3: the serving main path, bf16
     model = build_model(cfg["model"], device=device, generator=torch.Generator().manual_seed(0))
-    frames, serve_launches = serving_path(cfg["model"], model, pc_range, device)
+    frames, serve_launches = serving_path("serving", cfg["model"], model, device, KERNELS)
 
     # phase 4: how far the detections of one frame move: f32 and bf16
     # kernels vs plain versions (reported), and bf16 kernels run twice,
@@ -924,19 +1002,54 @@ def main() -> None:
     # 40 x 1344 x 1344 grid; then its f32 BEV with kernel 2 and with the
     # plain version, and the densify's inputs for the kernel phase
     vcfg = load_experiment(VOXEL18)
-    vmodel, vframes, voxel_launches = voxel_serving_path(vcfg, device)
-    voxel_cases = voxel_gather_inputs(vmodel, *vframes[0])
+    vmodel = build_model(vcfg["model"], device=device, generator=torch.Generator().manual_seed(0))
+    vframes, voxel_launches = serving_path("serving_voxel18", vcfg["model"], vmodel, device, KERNELS[1:])
+    voxel_cases, _ = predict_kernel_inputs(vmodel, *vframes[0], (), ("voxel18_densify",), ("voxel_mean",))
     del vmodel
     torch.cuda.empty_cache()
-    voxel_f32_kernels_vs_plain(vcfg, *vframes[0], device)
+    f32_bev_kernels_vs_plain("voxel18_f32_kernels_vs_plain", vcfg["model"], *vframes[0], device)
     del vframes
     torch.cuda.empty_cache()
+
+    # phase 5b: the Waymo serving paths, bf16, batch 1, 200k points, at the
+    # configs' full grids: pp18 (2048^2 pillars), voxel18 (40 x 2048^2
+    # voxels) and MVF (2048^2 pillars, 100 x 2560 cylinder cells, dense
+    # view towers); the MVF f32 BEV with the kernels and with their plain
+    # versions, and two bf16 MVF predicts of one frame; each path's kernel
+    # inputs for the kernel phase
+    waymo = {}
+    for path, config, required, names in (
+        ("serving_waymo_pp18", WAYMO_PP18, KERNELS,
+         (("waymo_pp18_cluster_mean_gather",), ("waymo_pp18_densify",), ("waymo_pp18_cluster_mean",))),
+        ("serving_waymo_voxel18", WAYMO_VOXEL18, KERNELS[1:],
+         ((), ("waymo_voxel18_densify",), ("waymo_voxel18_voxel_mean",))),
+        ("serving_mvf", MVF, KERNELS[1:],
+         (("mvf_pillar_cluster_mean_gather", "mvf_cylinder_cluster_mean_gather", "mvf_pillar_pfn_back_gather",
+           "mvf_cylinder_pfn_back_gather"), ("mvf_pillar_densify", "mvf_cylinder_densify"),
+          ("mvf_pillar_decoration_mean", "mvf_cylinder_decoration_mean"))),
+    ):
+        wcfg = load_experiment(config)
+        wmodel = serving_model(wcfg["model"], device)
+        wframes, launches = serving_path(path, wcfg["model"], wmodel, device, required)
+        gathers, sums = predict_kernel_inputs(wmodel, *wframes[0], *names)
+        waymo[path] = {"cfg": wcfg, "launches": launches, "gathers": gathers, "sums": sums}
+        if path == "serving_mvf":
+            with torch.inference_mode():
+                a, b = wmodel.predict(*wframes[0]), wmodel.predict(*wframes[0])
+            emit({"phase": "mvf_bf16_repeat", "valid": [int(a["valid"][0].sum()), int(b["valid"][0].sum())],
+                  "matched_fraction": matched_fraction(a, b), "bit_identical": same_prediction(a, b)})
+            if not same_prediction(a, b):
+                raise AssertionError("two bf16 MVF predicts of one frame differ")
+            del a, b
+            f32_bev_kernels_vs_plain("mvf_f32_kernels_vs_plain", wcfg["model"], *wframes[0], device)
+        del wmodel, wframes
+        torch.cuda.empty_cache()
 
     # phase 6: the training main path, bf16, B = 4, through the Trainer
     # (its checkpoint goes to a directory of the checkout that is removed)
     with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
         train_model, train_launches = train_path(cfg, batches, device, work_dir, "train",
-                                                 ("monotone_row_gather", "sorted_segment_bcast"))
+                                                 KERNELS[1:])
     del train_model
     torch.cuda.empty_cache()
 
@@ -952,7 +1065,7 @@ def main() -> None:
           "host_seconds": time.perf_counter() - t0})
     with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
         train_model, vtrain_launches = train_path(vcfg, vbatches, device, work_dir, "train_voxel18",
-                                                  ("monotone_row_gather", "sorted_segment_bcast"))
+                                                  KERNELS[1:])
     del train_model
     torch.cuda.empty_cache()
     f32_train_kernels_vs_plain(vcfg, vbatches[0], device, "voxel18_f32_train_kernels_vs_plain")
@@ -969,9 +1082,17 @@ def main() -> None:
     train_cases = train_gather_inputs(cfg, vcfg, batches[0], vbatches[0], device)
     sum_cases = segment_sum_inputs(model, points, mask, vmodel, vpoints, vmask, cfg, vcfg,
                                    batches[0], vbatches[0], device)
+    for w in waymo.values():
+        train_cases += w.pop("gathers")
+        sum_cases += w.pop("sums")
     torch.cuda.empty_cache()
     with torch.inference_mode():
         slot, cap = check_pfn(model.reader, points, mask, gen, device, records)
+        wpcfg = waymo["serving_waymo_pp18"]["cfg"]["model"]
+        wpmodel = build_model(wpcfg, device=device, generator=torch.Generator().manual_seed(0))
+        check_pfn(wpmodel.reader, *frame(wpcfg["reader"]["pc_range"], 0, device), gen, device, records,
+                  "serving_waymo_pp18")
+        del wpmodel
         check_gather(model.reader, points, mask, slot, cap, gen, device, records,
                      train_cases + voxel_cases)
         del train_cases, voxel_cases
@@ -981,17 +1102,25 @@ def main() -> None:
         train_slot = model.reader.decorate(pts, pmask, train_cap)[1]
         check_segscan(train_slot, gen, device, records, sum_cases)
         del pts, pmask, train_slot, sum_cases
+    torch.cuda.empty_cache()
 
-    # phase 10: where a serving frame's time goes on the device, for both
-    # serving paths at the reader's largest bucket (profiled last, as above)
+    # phase 10: where a serving frame's time goes on the device, for every
+    # serving path at the reader's largest bucket (profiled last, as above)
+    profiled = [("serving", model, (points, mask)), ("serving_voxel18", vmodel, (vpoints, vmask))]
+    profiled += [(path, serving_model(w["cfg"]["model"], device), frame(w["cfg"]["model"]["reader"]["pc_range"], 0, device))
+                 for path, w in waymo.items()]
     with torch.inference_mode():
-        for path, mdl, (p, m) in (("serving", model, (points, mask)),
-                                  ("serving_voxel18", vmodel, (vpoints, vmask))):
+        for path, mdl, (p, m) in profiled:
             mdl.predict(p, m)
+
+            def reader_and_backbone(mdl=mdl, p=p, m=m):
+                x = mdl.reader(p, m)
+                return x if mdl.backbone is None else mdl.backbone(x)
+
             emit({"phase": "frame_profile", "path": path,
                   "predict": profile_device(lambda: mdl.predict(p, m), 3),
-                  "reader_and_backbone": profile_device(lambda: mdl.backbone(mdl.reader(p, m)), 3)})
-    del vmodel, vpoints, vmask
+                  "reader_and_backbone": profile_device(reader_and_backbone, 3)})
+    del profiled, vmodel, vpoints, vmask
 
     summary_keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                     "device_ms", "device_plain_ms", "device_library_ms")
@@ -999,32 +1128,30 @@ def main() -> None:
     def summary(rec):
         return {k: rec[k] for k in summary_keys}
 
-    def line(name, route, source, replaces, launches, **extra):
-        rec = records[name]
+    def line(name, rec, route, source, replaces, launches_by_path, **extra):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "launches": sum(launches_by_path.values()), "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-                "device_ms": rec["device_ms"], "device_library_ms": rec["device_library_ms"], **extra}
+                "device_ms": rec["device_ms"], "device_library_ms": rec["device_library_ms"],
+                "launches_by_path": launches_by_path, **extra}
 
-    paths = {"serving": serve_launches, "serving_voxel18": voxel_launches, "train": train_launches,
-             "train_voxel18": vtrain_launches}
-    gather_launches = {p: n["monotone_row_gather"] for p, n in paths.items()}
-    bcast_launches = {p: n["sorted_segment_bcast"] for p, n in paths.items()}
+    paths = {"serving": serve_launches, "serving_voxel18": voxel_launches,
+             **{path: w["launches"] for path, w in waymo.items()},
+             "train": train_launches, "train_voxel18": vtrain_launches}
+    by_path = {k: {p: n[k] for p, n in paths.items()} for k in KERNELS}
     cases = records["gather_cases"]
     kernels_line = [
-        line("pfn_two_layer", "cuda", "pillarnext_tpu_torch/csrc/pfn.cu",
-             "pillarnext_tpu/ops/pallas_pfn.py:93", serve_launches["pfn_two_layer"]),
-        line("monotone_row_gather", "cuda", "pillarnext_tpu_torch/csrc/gather.cu",
-             "pillarnext_tpu/ops/pallas_gather.py:60", sum(gather_launches.values()),
-             launches_by_path=gather_launches,
-             voxel18_densify=summary(cases["voxel18_densify"]),
-             train_voxel18_densify=summary(cases["train_voxel18_densify"]),
-             train_voxel18_densify_backward=summary(cases["train_voxel18_densify_backward"])),
-        line("sorted_segment_bcast", "cuda", "pillarnext_tpu_torch/csrc/segscan.cu",
-             "pillarnext_tpu/ops/pallas_segscan.py:124", sum(bcast_launches.values()),
-             launches_by_path=bcast_launches,
-             launches_per_train_step={p: bcast_launches[p] / TRAIN_STEPS for p in ("train", "train_voxel18")},
+        line("pfn_two_layer", records["pfn_cases"]["serving"], "cuda", "pillarnext_tpu_torch/csrc/pfn.cu",
+             "pillarnext_tpu/ops/pallas_pfn.py:93", by_path["pfn_two_layer"],
+             cases={case: summary(rec) for case, rec in records["pfn_cases"].items()}),
+        line("monotone_row_gather", records["monotone_row_gather"], "cuda", "pillarnext_tpu_torch/csrc/gather.cu",
+             "pillarnext_tpu/ops/pallas_gather.py:60", by_path["monotone_row_gather"],
+             cases={case: summary(rec) for case, rec in cases.items()}),
+        line("sorted_segment_bcast", records["sorted_segment_bcast"], "cuda", "pillarnext_tpu_torch/csrc/segscan.cu",
+             "pillarnext_tpu/ops/pallas_segscan.py:124", by_path["sorted_segment_bcast"],
+             launches_per_train_step={p: by_path["sorted_segment_bcast"][p] / TRAIN_STEPS
+                                      for p in ("train", "train_voxel18")},
              device_launches_per_call=records["sorted_segment_bcast"]["device_launches_per_call"],
              segment_sums={case: summary(rec) for case, rec in records["segment_sums"].items()}),
     ]

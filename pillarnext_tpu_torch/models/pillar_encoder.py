@@ -29,8 +29,10 @@ from pillarnext_tpu_torch.ops.voxelize import VoxelGrid, pillar_coords, pillar_s
 
 
 class PFNLayer(nn.Module):
-    """Parameters of one PFN layer (pillar_encoder.py:48-79): Linear (no
-    bias) + BN (eps 1e-3); non-last layers have half the width."""
+    """One PFN layer (pillar_encoder.py:48-79): Linear (no bias) + BN
+    (eps 1e-3); non-last layers have half the width.  The pillar reader's
+    eval runs its parameters through kernel 1 instead (``kernel_params``);
+    the MVF views run the layer in both modes."""
 
     def __init__(self, in_ch: int, out_ch: int, last_layer: bool):
         super().__init__()
@@ -42,16 +44,24 @@ class PFNLayer(nn.Module):
         """(W (in, units), (2, units) rows inv, shift)."""
         return self.linear.weight.t(), torch.stack(self.norm.folded())
 
-    def train_forward(self, feats, valid, slot, cap: int, last: bool, plain: bool = False):
-        """Linear + masked BN (batch statistics) + ReLU + mask; then the
+    def forward(self, feats, valid, slot, cap: int, last: bool, plain: bool = False):
+        """Linear + BN + ReLU + mask over the slot-sorted points (train:
+        masked batch statistics; eval: the running ones, folded); then the
         (cap + 1, units) pillar max for the last layer, or [x, pillar max
-        broadcast to every point] for the others."""
+        back at every point] for the others: kernel 3's max broadcast in
+        training, the max table and its back-gather (kernel 2 on a CUDA
+        tensor, scatter.gather_segments) in eval, as the JAX layer runs."""
         x = torch.nn.functional.linear(feats, self.linear.weight.to(feats.dtype))
         x = torch.relu(self.norm(x, channel_dim=-1, valid=valid))
         x = torch.where(valid[:, None], x, 0.0)
         if last:
             return scatter.segment_max(x, slot, cap + 1)
-        return torch.cat([x, pillar_max_broadcast(x, slot, plain=plain)], dim=-1)
+        if self.training:
+            return torch.cat([x, pillar_max_broadcast(x, slot, plain=plain)], dim=-1)
+        # the dump row is the max over masked (zero) points: 0 unless the
+        # table overflowed, and an overflowed frame is recomputed
+        table = scatter.segment_max(x, slot, cap + 1)
+        return torch.cat([x, scatter.gather_segments(table, slot, zero_dump_row=True, plain=plain)], dim=-1)
 
 
 class PillarFeatureNet(nn.Module):
@@ -165,7 +175,7 @@ class PillarFeatureNet(nn.Module):
         if self.training:
             x = feats
             for i, layer in enumerate(self.pfn_layers):
-                x = layer.train_forward(x, valid, slot, cap, i == len(self.pfn_layers) - 1, plain)
+                x = layer(x, valid, slot, cap, i == len(self.pfn_layers) - 1, plain)
             # the dump row holds the max of overflowed valid points: zero it
             table = torch.cat([x[:-1], x.new_zeros((1, x.shape[1]))])
         else:

@@ -10,7 +10,10 @@ evenly among tied maxima, XLA's scatter-max rule).
 Every function here takes segment ids in ascending order, as every caller
 has them: ``compactify`` sorts the points stably and the readers reorder
 them by its ``order``, so the slot of each sorted point never decreases.
-Nothing checks the order (the tests do).  The sums run in the same order
+The one exception is ``segment_max``'s forward, a ``scatter_reduce(amax)``
+that is exact in any order (the MVF reader's final coarse max runs over
+ids that do not ascend); its backward needs them ascending.  Nothing
+checks the order (the tests do).  The sums run in the same order
 on every run: kernel 3's ``sum`` (ops/segscan.py, f32 accumulation, no
 atomics) gives every row its segment's sum, and each segment then takes
 its first row, found by a binary search over the sorted ids.  They never
@@ -81,9 +84,11 @@ class _SegmentMax(torch.autograd.Function):
 
 
 def segment_max(data: torch.Tensor, seg: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """Per-segment max for an ascending ``seg``; empty (and non-finite)
-    segments give 0.  Backward: each segment's cotangent goes to its
-    maxima, split evenly among ties."""
+    """Per-segment max; empty (and non-finite) segments give 0.  The
+    forward takes ids in any order (a max is exact in any order).
+    Backward, for an ascending ``seg`` only (it counts ties by kernel 3's
+    sorted sum): each segment's cotangent goes to its maxima, split evenly
+    among ties."""
     return _SegmentMax.apply(data, seg, num_segments)
 
 

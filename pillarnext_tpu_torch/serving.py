@@ -8,9 +8,13 @@ with the detections as device scalars, and ``resolve`` reads all of a
 batch's counters in one transfer.  A frame's overflow is the sum of every
 counter whose name holds ``overflow``: the reader's, and the 3-D
 backbone's stage tables, which scale with the bucket, so a small bucket
-can overflow a stage while the reader fits.  A frame that overflowed is
-recomputed at the largest bucket (no site is lost there, or it raises),
-and later frames dispatch at the largest bucket.  Without overflow a
+can overflow a stage while the reader fits.  The MVF reader's cylinder
+table counts too, though no bucket scales it (the buckets are pillar
+capacities, as in the JAX serving): a frame whose cylinder table
+overflows is recomputed at the largest bucket like any other and, since
+its cylinder table overflows there as well, raises.  A frame that
+overflowed is recomputed at the largest bucket (no site is lost there, or
+it raises), and later frames dispatch at the largest bucket.  Without overflow a
 smaller table gives the same detections: the active set and every slot's
 values are unchanged.  Capacity tracking lowers the operating bucket to
 the measured requirement (peak active pillars or voxels x margin,
@@ -42,8 +46,8 @@ class _Pending:
 class AdaptivePredictor:
     """Args:
         model: the port's detector in eval mode (utils/builders.build_model);
-            ``model.reader.capacity`` (the pillar or voxel capacity) is the
-            largest bucket.
+            ``model.reader.capacity`` (the pillar or voxel capacity; MVF's
+            pillar capacity) is the largest bucket.
         buckets: ascending per-sample capacities; default (3/4 max, max).
     """
 

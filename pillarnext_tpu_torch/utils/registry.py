@@ -19,13 +19,13 @@ _PORTED = {
     "pillarnext_tpu.models.PillarFeatureNet": models.PillarFeatureNet,
     "pillarnext_tpu.models.SparseResNet": models.SparseResNet,
     "pillarnext_tpu.models.VoxelFeatureNet": models.VoxelFeatureNet,
+    "pillarnext_tpu.models.MVFFeatureNet": models.MVFFeatureNet,
     "pillarnext_tpu.models.SparseResNet3D": models.SparseResNet3D,
     "pillarnext_tpu.models.ASPPNeck": models.ASPPNeck,
     "pillarnext_tpu.models.CenterHead": models.CenterHead,
     "pillarnext_tpu.data.AssignLabel": AssignLabel,
 }
 _NOT_PORTED = (
-    "pillarnext_tpu.models.MVFFeatureNet",
     "pillarnext_tpu.data.NuScenesDataset",
     "pillarnext_tpu.data.WaymoDataset",
     "pillarnext_tpu.data.DataBaseSampler",

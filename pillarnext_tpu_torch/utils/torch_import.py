@@ -1,8 +1,9 @@
 """JAX ``{params, batch_stats}`` trees -> the port's state_dict (numpy only).
 
-The port's own copy of ``export_pillarnext`` and ``export_voxelnext`` and
-their helpers (pillarnext_tpu/utils/torch_import.py:378-599), for the
-standard (non-merged) pillarnet18_aspp and voxel18_aspp layouts.  They write
+The port's own copy of ``export_pillarnext``, ``export_voxelnext`` and
+``export_mvfnext`` and their helpers
+(pillarnext_tpu/utils/torch_import.py:378-649), for the standard
+(non-merged) pillarnet18_aspp, voxel18_aspp and mvf18_aspp layouts.  They write
 the reference checkpoint schema the port's modules use.  Layout conversions:
 
   Dense kernel (in, out)               -> Linear (out, in)
@@ -45,6 +46,12 @@ def _inv_conv_block(sd, prefix, p, s):
     _inv_bn(sd, f"{prefix}.norm", p["BatchNorm_0"], s["BatchNorm_0"])
 
 
+def _inv_point_layer(sd, prefix, p, s):
+    """Dense_0 + MaskedBatchNorm_0 (a PFN layer or a PointNet)."""
+    sd[f"{prefix}.linear.weight"] = np.ascontiguousarray(np.asarray(p["Dense_0"]["kernel"]).T)
+    _inv_bn(sd, f"{prefix}.norm", p["MaskedBatchNorm_0"], s["MaskedBatchNorm_0"])
+
+
 def _inv_residual_block(sd, prefix, p, s):
     _inv_conv_block(sd, f"{prefix}.block1", p["ConvBlock_0"], s["ConvBlock_0"])
     sd[f"{prefix}.conv2.weight"] = _inv_conv_kernel(p["Conv_0"]["kernel"])
@@ -67,12 +74,8 @@ def export_pillarnext(
     sd: dict[str, np.ndarray] = {}
 
     for i in range(len(num_filters)):
-        rp = p["reader"][f"pfn_layers_{i}"]
-        rs = s["reader"][f"pfn_layers_{i}"]
-        sd[f"reader.pfn_layers.{i}.linear.weight"] = np.ascontiguousarray(
-            np.asarray(rp["Dense_0"]["kernel"]).T
-        )
-        _inv_bn(sd, f"reader.pfn_layers.{i}.norm", rp["MaskedBatchNorm_0"], rs["MaskedBatchNorm_0"])
+        _inv_point_layer(sd, f"reader.pfn_layers.{i}", p["reader"][f"pfn_layers_{i}"],
+                         s["reader"][f"pfn_layers_{i}"])
 
     for si, n_blocks in enumerate(layer_nums):
         bp, bs = p["backbone"][f"stage_{si}"], s["backbone"][f"stage_{si}"]
@@ -205,3 +208,46 @@ def export_voxelnext(
     if "neck" in p:
         _export_neck_head(sd, p, s, tasks, common_heads, num_hm_conv)
     return sd
+
+
+def export_mvfnext(
+    params,
+    batch_stats,
+    *,
+    num_filters=(48, 48),
+    layer_nums=(2, 2, 2, 2),
+    tasks=(),
+    common_heads=None,
+    num_hm_conv=2,
+) -> dict[str, np.ndarray]:
+    """mvf18_aspp {params, batch_stats} -> the state_dict of the port's
+    MVF detector (models/mvf_encoder.py): ``reader.{pillar,cylinder}_view``
+    with ``pfn.{i}`` and ``blocks.{i}.{j}`` (block 0 of a stage its
+    ConvBlock, block j + 1 its j-th ResidualBlock), then
+    ``reader.pointnet{1,2}``, the neck and the head."""
+    p, s = params, batch_stats
+    sd: dict[str, np.ndarray] = {}
+    rp, rs = p["reader"], s["reader"]
+    for view in ("pillar_view", "cylinder_view"):
+        export_mvf_view(sd, f"reader.{view}", rp[view], rs[view], num_filters, layer_nums)
+    _inv_point_layer(sd, "reader.pointnet1", rp["pointnet1"], rs["pointnet1"])
+    _inv_point_layer(sd, "reader.pointnet2", rp["pointnet2"], rs["pointnet2"])
+
+    if "neck" in p:  # reader-only trees allowed (tests)
+        _export_neck_head(sd, p, s, tasks, common_heads, num_hm_conv)
+    return sd
+
+
+def export_mvf_view(sd, prefix, p, s, num_filters, layer_nums) -> None:
+    """One MVF ``SingleView`` tree into ``sd`` under ``prefix``: ``pfn.{i}``,
+    then ``blocks.{i}.0`` (the stage's ConvBlock) and ``blocks.{i}.{j + 1}``
+    (its ResidualBlocks, numbered across stages in JAX)."""
+    for i in range(len(num_filters)):
+        _inv_point_layer(sd, f"{prefix}.pfn.{i}", p[f"PFNLayer_{i}"], s[f"PFNLayer_{i}"])
+    blk = 0
+    for i, n_blocks in enumerate(layer_nums):
+        _inv_conv_block(sd, f"{prefix}.blocks.{i}.0", p[f"ConvBlock_{i}"], s[f"ConvBlock_{i}"])
+        for j in range(n_blocks):
+            _inv_residual_block(sd, f"{prefix}.blocks.{i}.{j + 1}",
+                                p[f"ResidualBlock_{blk}"], s[f"ResidualBlock_{blk}"])
+            blk += 1

@@ -3,8 +3,9 @@
 The bridge carries the JAX package's ``{params, batch_stats}`` (numpy
 arrays) into the port's ``state_dict`` through the port's numpy-only
 ``utils/torch_import`` exporters (``export_pillarnext`` for the pillar
-reader, ``export_voxelnext`` for the voxel reader), which write the
-reference checkpoint schema the port's modules use.
+reader, ``export_voxelnext`` for the voxel reader, ``export_mvfnext`` for
+the MVF reader), which write the reference checkpoint schema the port's
+modules use.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ import torch
 from torch import nn
 
 from pillarnext_tpu_torch.models.layers import BatchNorm
+from pillarnext_tpu_torch.models.mvf_encoder import MVFFeatureNet
 from pillarnext_tpu_torch.models.voxel_encoder import VoxelFeatureNet
-from pillarnext_tpu_torch.utils.torch_import import export_pillarnext, export_voxelnext
+from pillarnext_tpu_torch.utils.torch_import import export_mvfnext, export_pillarnext, export_voxelnext
 
 
 @torch.no_grad()
@@ -50,14 +52,19 @@ def init_random(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def state_dict_from_jax(model: nn.Module, params, batch_stats) -> dict[str, torch.Tensor]:
-    """The port's state_dict for a pillar (flagship-structured) or voxel
-    (voxel18-structured) detector from JAX ``params`` / ``batch_stats``
-    trees of numpy-convertible arrays; the reader's type picks the
-    exporter."""
+    """The port's state_dict for a pillar (flagship-structured), voxel
+    (voxel18-structured) or MVF (mvf18-structured) detector from JAX
+    ``params`` / ``batch_stats`` trees of numpy-convertible arrays; the
+    reader's type picks the exporter."""
     head = model.head
     neck_head = dict(tasks=head.class_names, common_heads=head.common_heads,
                      num_hm_conv=head.num_hm_conv)
-    if isinstance(model.reader, VoxelFeatureNet):
+    if isinstance(model.reader, MVFFeatureNet):
+        sd = export_mvfnext(
+            params, batch_stats, num_filters=model.reader.num_filters,
+            layer_nums=model.reader.layer_nums, **neck_head,
+        )
+    elif isinstance(model.reader, VoxelFeatureNet):
         sd = export_voxelnext(
             params, batch_stats, layer_nums=model.backbone.layer_nums,
             ds_layer_strides=model.backbone.strides, **neck_head,

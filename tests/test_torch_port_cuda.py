@@ -27,6 +27,9 @@ bit-identical from call to call at full grids (the segment sums are
 kernel 3's, not atomics), an f32 model that keeps TF32 off by itself
 under PyTorch's default flags, a narrowed voxel18 f32 train step on the
 card against the CPU, and kernel 2 at voxel18 training's densify shapes.
+MVF: the narrowed MVF detector on the card against the CPU, its f32 BEV
+bit-identical with the kernels and with their plain versions, and kernel 2
+as its pillar densify at full size (4,194,304 rows of 48 bf16 channels).
 No test here sets a TF32 flag.
 """
 
@@ -196,11 +199,13 @@ def test_row_gather_bit_exact(device, dtype, m, r, c):
     assert torch.equal(got, want)
 
 
-# (dtype, channels): rows of 2, 6, 10, 12, 20, 128 and 512 bytes
+# (dtype, channels): rows of 2, 6, 10, 12, 20, 48, 96, 128 and 512 bytes (48
+# and 96: MVF's back-gathers and densify, 16-byte chunks at 3 and 6 a row)
 _ROW_WIDTHS = [
     (torch.bfloat16, 1), (torch.bfloat16, 3), (torch.bfloat16, 5), (torch.bfloat16, 6),
-    (torch.bfloat16, 10), (torch.bfloat16, 64), (torch.bfloat16, 256),
-    (torch.float32, 3), (torch.float32, 5), (torch.float32, 32), (torch.float32, 128),
+    (torch.bfloat16, 10), (torch.bfloat16, 24), (torch.bfloat16, 48), (torch.bfloat16, 64),
+    (torch.bfloat16, 256), (torch.float32, 3), (torch.float32, 5), (torch.float32, 12),
+    (torch.float32, 24), (torch.float32, 32), (torch.float32, 128),
 ]
 
 
@@ -787,3 +792,65 @@ def test_densify_at_voxel18_training_shapes_is_bit_identical(device):
     assert torch.equal(out[False][0], out[True][0])
     assert torch.equal(out[False][1], out[True][1])
     assert int((out[False][1][:cap][valid] != 0).any(1).sum()) == 150_000
+
+
+SMALL_MVF = [
+    "model.reader.pc_range=[-8.0,-8.0,-10.0,8.0,8.0,10.0]", "model.reader.voxel_size=[0.25,0.25,20.0]",
+    "model.reader.cylinder_size=[5.625,0.375,10.0]",
+    "model.reader.cylinder_range=[-180.0,-3.0,0.0,180.0,3.0,10.0]",
+    "model.reader.num_filters=[8,8]", "model.reader.ds_num_filters=[8,12,16,16]",
+    "model.reader.out_channels=16", "model.reader.pillar_capacity=4096",
+    "model.reader.cylinder_capacity=1024", "model.neck.in_channels=16",
+    "model.head.in_channels=16", "+model.head.share_conv_channel=16", "model.dtype=float32",
+]
+
+
+def test_small_mvf_gpu_matches_cpu(device):
+    """The narrowed MVF detector (tests/test_torch_port_mvf.py's config,
+    f32, TF32 off by ``model.precision()`` as its predict runs) on the
+    card, through kernels 2 and 3, against the CPU: the BEV
+    within atol 1e-4 + rtol 1e-5, and bit-identical between the kernels
+    and their plain versions on the card."""
+    from pillarnext_tpu_torch.utils.builders import build_model
+    from pillarnext_tpu_torch.utils.config import load_experiment
+    from pillarnext_tpu_torch.utils.synth import lidar_like_points
+
+    cfg = load_experiment(REPO_CONFIGS / "waymo_det_mvf18_aspp_iou_car.yaml", SMALL_MVF)["model"]
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    pts, mask = lidar_like_points(2, 3000, [-8.0, -8.0, -10.0, 8.0, 8.0, 10.0], seed=0)
+    pts, mask = torch.from_numpy(pts), torch.from_numpy(mask)
+    with torch.inference_mode(), model.precision():
+        want = model.reader(pts, mask)
+        model = model.to(device)
+        launches = (monotone_row_gather.launches, sorted_segment_bcast.launches)
+        got = model.reader(pts.to(device), mask.to(device))
+        # per view: the cluster-mean gather, the PFN back-gather, the densify;
+        # per view one decoration mean
+        assert (monotone_row_gather.launches - launches[0], sorted_segment_bcast.launches - launches[1]) == (6, 2)
+        plain = model.reader(pts.to(device), mask.to(device), plain=True)
+    assert torch.equal(got, plain)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4, rtol=1e-5)
+
+
+def test_densify_at_mvf_pillar_shape_is_bit_identical(device):
+    """Kernel 2 as MVF's pillar densify at the Waymo grid: 2048^2 =
+    4,194,304 dense rows of 48 bf16 channels (96-byte rows, 403 MB) from an
+    86,017-row table with ~65k occupied slots, against the plain version."""
+    from pillarnext_tpu_torch.ops.compact import invert_slot_map
+    from pillarnext_tpu_torch.ops.densify import densify
+
+    dense_rows, cap, c = 2048 * 2048, 86_016, 48
+    g = torch.Generator().manual_seed(12)
+    occupied = torch.sort(torch.randperm(dense_rows, generator=g)[:65_300]).values
+    slot_id = torch.cat([occupied, torch.full((cap - 65_300,), dense_rows)]).to(torch.int32).to(device)
+    slot_of_dense, valid = invert_slot_map(slot_id, dense_rows)
+    table = torch.randn(cap + 1, c, generator=g).to(device, torch.bfloat16)
+    table[-1] = 0
+    launches = monotone_row_gather.launches
+    with torch.inference_mode():
+        got = densify(table, slot_of_dense, slot_id)
+        want = densify(table, slot_of_dense, slot_id, plain=True)
+    assert monotone_row_gather.launches == launches + 1
+    assert got.shape == (dense_rows, c)
+    assert torch.equal(got, want)
+    assert int((got != 0).any(1).sum()) == 65_300

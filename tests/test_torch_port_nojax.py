@@ -7,7 +7,8 @@ flagship-structured model on the CPU, runs one predict and one train
 step, and then requires that no module named ``jax*``, ``flax*``,
 ``pillarnext_tpu`` or ``pillarnext_tpu.*`` was imported.  Two more
 interpreters do the same for a predict of the small voxel18 model and for
-a voxel18 train step through the Trainer.
+a voxel18 train step through the Trainer, and one for a predict of the
+small MVF model (waymo_det_mvf18_aspp_iou_car).
 """
 
 from __future__ import annotations
@@ -181,6 +182,57 @@ def test_port_voxel18_train_step_imports_no_jax():
     assert result["loss_finite"]
     assert result["step"] == 1
     assert "stage1_overflow" in result["telemetry"] and "voxel_overflow" in result["telemetry"]
+    assert result["loaded"] == []
+
+
+MVF_SCRIPT = r"""
+import json, sys
+import torch
+from pillarnext_tpu_torch.serving import AdaptivePredictor
+from pillarnext_tpu_torch.utils.builders import build_model
+from pillarnext_tpu_torch.utils.config import load_experiment
+from pillarnext_tpu_torch.utils.synth import lidar_like_points
+
+pc = [-8.0, -8.0, -10.0, 8.0, 8.0, 10.0]
+cfg = load_experiment(sys.argv[1], [
+    f"model.reader.pc_range={pc}", "model.reader.voxel_size=[0.25,0.25,20.0]",
+    "model.reader.cylinder_size=[5.625,0.375,10.0]",
+    "model.reader.cylinder_range=[-180.0,-3.0,0.0,180.0,3.0,10.0]",
+    "model.reader.num_filters=[8,8]", "model.reader.ds_num_filters=[8,12,16,16]",
+    "model.reader.out_channels=16", "model.reader.pillar_capacity=4096",
+    "model.reader.cylinder_capacity=1024", "model.neck.in_channels=16",
+    "model.head.in_channels=16", "+model.head.share_conv_channel=16",
+])
+model = build_model(cfg["model"], device="cpu", generator=torch.Generator().manual_seed(0))
+pts, mask = lidar_like_points(1, 2000, pc, seed=0)
+out = AdaptivePredictor(model).predict(torch.from_numpy(pts), torch.from_numpy(mask))
+
+def foreign(name):
+    top = name.split(".")[0]
+    return top.startswith("jax") or top.startswith("flax") or top == "pillarnext_tpu"
+
+print(json.dumps({
+    "reader": type(model.reader).__name__,
+    "backbone": model.backbone is None,
+    "shape": list(out["box3d_lidar"].shape),
+    "finite": bool(torch.isfinite(out["box3d_lidar"]).all()),
+    "loaded": sorted(m for m in sys.modules if foreign(m)),
+}))
+"""
+
+
+def test_port_mvf_predict_imports_no_jax():
+    mvf = REPO / "pillarnext_tpu/configs/experiments/waymo_det_mvf18_aspp_iou_car.yaml"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", MVF_SCRIPT, str(mvf)],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (result["reader"], result["backbone"]) == ("MVFFeatureNet", True)
+    assert result["shape"] == [1, 3 * 500, 9]
+    assert result["finite"]
     assert result["loaded"] == []
 
 
