@@ -27,6 +27,12 @@ width, random weights from a seed:
   sparse 3-D ResNet's backward, kernel 2's densify and its backward),
   with each table's active count beside its rows, and an f32 step whose
   BEV must be bit-identical between the kernels and their plain versions;
+- train_mvf, train_waymo_pp18, train_waymo_voxel18: the same for the
+  three Waymo configs at their full grids (MVF: both views' PFN, densify
+  and tower, each tower block recomputed in the backward, the readback's
+  and the coarse max's backwards); for MVF also an f32 step with the
+  kernels against their plain versions and two bf16 steps that must give
+  the same bits;
 
 then holds each kernel against its plain PyTorch version at the shapes
 those paths give it.  Kernel 3 (``sorted_segment_bcast``) also carries
@@ -291,6 +297,9 @@ def captured(module, name: str):
         calls.append(tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args))
         return real(*args)
 
+    # a wrapper counts its launches through its own module's name, which is
+    # ``capture`` inside the block when ``module`` is the wrapper's module
+    capture.launches = 0
     setattr(module, name, capture)
     try:
         yield calls
@@ -298,14 +307,16 @@ def captured(module, name: str):
         setattr(module, name, real)
 
 
-def train_step_calls(model_cfg, batch, device, module, name: str) -> list:
-    """The arguments of every call of ``module.name`` in one bf16 train
-    step (forward and backward, no update) of ``model_cfg`` on ``batch``."""
+def train_step_calls(model_cfg, batch, device, *wrappers) -> list:
+    """For each ``(module, name)`` of ``wrappers``, the arguments of every
+    call of ``module.name`` in one bf16 train step (forward and backward,
+    no update) of ``model_cfg`` on ``batch``."""
     from pillarnext_tpu_torch.train.trainer import batch_to_device
     from pillarnext_tpu_torch.utils.builders import build_model
 
     model = build_model(model_cfg, device=device, generator=torch.Generator().manual_seed(0), train=True)
-    with captured(module, name) as calls:
+    with contextlib.ExitStack() as stack:
+        calls = [stack.enter_context(captured(module, name)) for module, name in wrappers]
         loss, _ = model.loss(batch_to_device(batch, device))
         loss.backward()
     del model, loss
@@ -325,9 +336,9 @@ def train_gather_inputs(cfg, vcfg, batch, vbatch, device) -> list:
     (2, 168, 168) and its backward gather."""
     from pillarnext_tpu_torch.ops import densify, scatter
 
-    with captured(scatter, "monotone_row_gather") as cluster:
-        dens = train_step_calls(cfg["model"], batch, device, densify, "monotone_row_gather")
-    voxel = train_step_calls(vcfg["model"], vbatch, device, densify, "monotone_row_gather")
+    cluster, dens = train_step_calls(cfg["model"], batch, device, (scatter, "monotone_row_gather"),
+                                     (densify, "monotone_row_gather"))
+    voxel, = train_step_calls(vcfg["model"], vbatch, device, (densify, "monotone_row_gather"))
     return (named(("train_cluster_mean_gather", "train_densify_h8", "train_densify_backward"), cluster + dens,
                   "a flagship train step's kernel 2")
             + named(("train_voxel18_densify", "train_voxel18_densify_backward"), voxel,
@@ -337,17 +348,42 @@ def train_gather_inputs(cfg, vcfg, batch, vbatch, device) -> list:
 def segment_sum_inputs(model, points, mask, vmodel, vpoints, vmask, cfg, vcfg, batch, vbatch, device) -> list:
     """(name, x, seg, reduce) of kernel 3's segment sums (ops/scatter.py)
     on the four main paths: the flagship's cluster mean and voxel18's
-    voxel mean in a serving frame and in a bf16 train step, and the ties
-    count of the flagship PFN's last-layer max in its backward."""
+    voxel mean in a serving frame and in a bf16 train step."""
     from pillarnext_tpu_torch.ops import scatter
 
     with torch.inference_mode(), captured(scatter, "sorted_segment_bcast") as serving:
         model.reader(points, mask)
         vmodel.reader(vpoints, vmask)
-    train = train_step_calls(cfg["model"], batch, device, scatter, "sorted_segment_bcast")
-    vtrain = train_step_calls(vcfg["model"], vbatch, device, scatter, "sorted_segment_bcast")
-    return named(("serving_cluster_mean", "serving_voxel_mean", "train_cluster_mean", "train_pfn_max_ties",
-                  "train_voxel_mean"), serving + train + vtrain, "the segment sums")
+    train, = train_step_calls(cfg["model"], batch, device, (scatter, "sorted_segment_bcast"))
+    vtrain, = train_step_calls(vcfg["model"], vbatch, device, (scatter, "sorted_segment_bcast"))
+    return named(("serving_cluster_mean", "serving_voxel_mean", "train_cluster_mean", "train_voxel_mean"),
+                 serving + train + vtrain, "the segment sums")
+
+
+def mvf_train_kernel_inputs(cfg, batch, device) -> tuple[list, list]:
+    """The kernel inputs new in an MVF train step (bf16, B = 4): (name,
+    table, idx) of kernel 2 as the pillar densify's backward (the 2048^2
+    map's gradient gathered at the slot ids); (name, x, seg, reduce) of
+    kernel 3 as the PFN's max broadcast (the pillar view's), the two sums
+    of its backward (the view whose backward runs first) and the pillar
+    readback's backward sum."""
+    from pillarnext_tpu_torch.ops import densify, scatter, segscan
+
+    b, n = batch["points"].shape[:2]
+    pc, vs = cfg["model"]["reader"]["pc_range"], cfg["model"]["reader"]["voxel_size"]
+    dense_rows = b * round((pc[3] - pc[0]) / vs[0]) * round((pc[4] - pc[1]) / vs[1])
+    dens, bcast, sums = train_step_calls(cfg["model"], batch, device, (densify, "monotone_row_gather"),
+                                         (segscan, "sorted_segment_bcast"), (scatter, "sorted_segment_bcast"))
+    # the first two calls are the views' densifies, the backwards follow
+    gathers = [("train_mvf_pillar_densify_backward", *c) for c in dens[2:] if c[0].shape[0] == dense_rows]
+    maxes = [c for c in bcast if c[2] == "max"]
+    bsums = [c for c in bcast if c[2] == "sum"]
+    # the readbacks' sums have 4 rows a point; the pillar view's ids are the larger
+    readback = max((c for c in sums if c[0].shape[0] == 4 * b * n), key=lambda c: int(c[1].max()))
+    del dens, sums
+    segs = [("train_mvf_max_broadcast", *maxes[0]), ("train_mvf_max_broadcast_grad_sum", *bsums[0]),
+            ("train_mvf_max_broadcast_tie_count", *bsums[1]), ("train_mvf_pillar_readback_sum", *readback)]
+    return gathers, segs
 
 
 def check_gather(reader, points, mask, slot, cap, gen, device, records, path_cases):
@@ -409,9 +445,10 @@ def check_segscan(train_slot, gen, device, records, sum_cases):
     points, 32 channels), on the train batch's own slot stream and on a
     stream whose last segment holds half the rows (600k), and on
     ``sum_cases``, the rows and slot streams of the segment sums the main
-    paths run (ops/scatter.py, f32; beside each, the device time of
+    paths run (ops/scatter.py; beside each, the device time of
     ``torch.segment_reduce``, one call that computes the same sums one row
-    per segment): max bit-exact, sum within 1e-5 of the
+    per segment) and of the MVF PFN's max broadcast and its backward's sums
+    (ops/segscan.py): max bit-exact, sum within 1e-5 of the
     segment's sum of magnitudes in f32 (sums in another order; the plain
     version adds with atomics) and one bf16 rounding in bf16.  Each record
     carries the tile kernel's launch shape and the device launches of one
@@ -481,7 +518,9 @@ def check_segscan(train_slot, gen, device, records, sum_cases):
         return lambda: torch.segment_reduce(x, "sum", lengths=lengths, unsafe=True)
 
     records["segment_sums"] = {case: check(case, x, seg, reduce, segment_reduce(x, seg))
-                               for case, x, seg, reduce in sum_cases}
+                               for case, x, seg, reduce in sum_cases if reduce == "sum"}
+    records["max_broadcasts"] = {case: check(case, x, seg, reduce)
+                                 for case, x, seg, reduce in sum_cases if reduce == "max"}
     max_broadcast_record(train_slot, gen, device)
 
 
@@ -599,8 +638,10 @@ def train_breakdown(model, optimizer, batch, device):
     timed = synced_ms
     model.train()
     ex, h2d_ms = timed(lambda: batch_to_device(batch, device))
-    sb, reader_ms = timed(lambda: model.reader(ex["points"], ex["points_mask"]))
-    x, backbone_ms = timed(lambda: model.backbone(sb))
+    x, reader_ms = timed(lambda: model.reader(ex["points"], ex["points_mask"]))
+    backbone_ms = None
+    if model.backbone is not None:
+        x, backbone_ms = timed(lambda: model.backbone(x))
     x, neck_ms = timed(lambda: model.neck(x))
     (loss, _), head_ms = timed(lambda: model.head.loss(ex, model.head(x)))
     for p in optimizer.params:
@@ -727,9 +768,9 @@ def kernel_counters():
 
 def table_report(model, tel: dict, bucket: int, batch: int = 1) -> dict:
     """Each compact table of a predict or a train step: its active count
-    beside its rows.  Pillar reader: the pillar table; MVF: the pillar and
-    the cylinder tables; voxel18: the reader's voxels and each strided
-    stage's sites."""
+    beside its rows.  Pillar reader: the pillar table, and in training each
+    strided stage's sites; MVF: the pillar and the cylinder tables;
+    voxel18: the reader's voxels and each strided stage's sites."""
     reader = model.reader
     kind = type(reader).__name__
     if kind == "VoxelFeatureNet":
@@ -742,6 +783,9 @@ def table_report(model, tel: dict, bucket: int, batch: int = 1) -> dict:
                 "cylinder": min(reader.cylinder_capacity * batch, reader.cylinder_grid.num_pillars * batch)}
     else:
         caps = {"pillar": min(bucket * batch, reader.grid.num_pillars * batch)}
+        if "stage1_active" in tel:  # the all-sparse training backbone (models/resnet.py)
+            spatial = (reader.grid.size_y, reader.grid.size_x)
+            caps.update(model.backbone.table_capacities(caps["pillar"], batch, spatial))
     return {name: {"active": int(tel[f"{name}_active"]), "capacity": c,
                    "overflow": int(tel[f"{name}_overflow"])} for name, c in caps.items()}
 
@@ -848,9 +892,9 @@ def predict_kernel_inputs(model, points, mask, gathers: tuple, densifies: tuple,
 def train_path(cfg, batches, device, work_dir, path: str, required: tuple):
     """A training main path, bf16, B = 4, through the port's Trainer: its
     record carries the step times, losses, the last step's tables (each
-    active count beside its rows, voxel18), peak memory, a breakdown and a
-    2-step device profile; it fails unless every kernel in ``required``
-    launched."""
+    active count beside its rows), peak memory, a breakdown and a 2-step
+    device profile; it fails unless every kernel in ``required`` launched
+    and every loss is finite (the Trainer raises on an overflowed table)."""
     from pillarnext_tpu_torch.train.trainer import Trainer
     from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
 
@@ -878,8 +922,8 @@ def train_path(cfg, batches, device, work_dir, path: str, required: tuple):
         "telemetry_last_step": tel, "launches": launches,
         "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
     }
-    if "voxel_active" in tel:
-        rec["tables_last_step"] = table_report(model, tel, model.reader.capacity, batch_size)
+    cap = getattr(model.reader, "train_pillar_capacity", None) or model.reader.capacity
+    rec["tables_last_step"] = table_report(model, tel, cap, batch_size)
     rec["breakdown_ms"] = train_breakdown(model, opt, batches[0], device)
     rec["profile"] = profile_train_steps(model, opt, batches, device)
     emit(rec)
@@ -937,6 +981,34 @@ def f32_train_kernels_vs_plain(cfg, batch, device, phase: str):
     emit(rec)
     if abs(l_k - l_p) > 1e-6 * abs(l_p) or rel[worst] > 1e-3 or rec.get("bev_bit_identical") is False:
         raise AssertionError(f"f32 train step with kernels disagrees with plain: {rec}")
+
+
+def bf16_train_repeat(cfg, batch, device, phase: str):
+    """Two bf16 train steps from the same weights (a model from seed 0
+    each) on the same batch, under PyTorch's default flags: the losses,
+    every gradient and every BN statistic after the step must be the same
+    bits.  The port adds in one order everywhere (kernel 3's sorted sums,
+    integer tie counts, no float atomics)."""
+    from pillarnext_tpu_torch.train.train_state import train_step
+    from pillarnext_tpu_torch.train.trainer import batch_to_device
+    from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
+
+    ex = batch_to_device(batch, device)
+
+    def step():
+        model = build_model(cfg["model"], device=device, generator=torch.Generator().manual_seed(0), train=True)
+        opt, _ = build_optimizer(cfg, 10, list(model.parameters()))
+        scalars, _ = train_step(model, opt, ex)
+        return {"loss": scalars["loss"], **{n: p.grad for n, p in model.named_parameters()},
+                **{n: b.clone() for n, b in model.named_buffers()}}
+
+    a, b = step(), step()
+    differing = [k for k in a if not torch.equal(a[k], b[k])]
+    rec = {"phase": phase, "bit_identical": not differing, "differing": len(differing),
+           "first_differing": differing[:5], "compared": len(a), "loss": float(a["loss"])}
+    emit(rec)
+    if differing:
+        raise AssertionError(f"two bf16 train steps differ: {rec}")
 
 
 def main() -> None:
@@ -1071,6 +1143,45 @@ def main() -> None:
     f32_train_kernels_vs_plain(vcfg, vbatches[0], device, "voxel18_f32_train_kernels_vs_plain")
     torch.cuda.empty_cache()
 
+    # phase 8b: training of the three Waymo configs, bf16, B = 4 at the
+    # configs' full grids, through the Trainer: MVF (2048^2 pillar view,
+    # 100 x 2560 cylinder view, tower blocks recomputed in the backward),
+    # then an MVF f32 step with the kernels and with their plain versions
+    # and two bf16 MVF steps that must be the same bits; pp18 (2048^2 at
+    # train_pillar_capacity) and voxel18 (40 x 2048^2); then the kernel
+    # inputs these steps add, for the kernel phase (captured after the
+    # three paths, so that no path's peak memory holds them)
+    from pillarnext_tpu_torch.ops import densify
+
+    wtrain, first_batch = {}, {}
+    for path, serving in (("train_mvf", "serving_mvf"), ("train_waymo_pp18", "serving_waymo_pp18"),
+                          ("train_waymo_voxel18", "serving_waymo_voxel18")):
+        wcfg = waymo[serving]["cfg"]
+        t0 = time.perf_counter()
+        wbatches = synthetic_batches(wcfg, TRAIN_STEPS, batch_size, N_POINTS, seed=0)
+        emit({"phase": "train_data", "config": path, "batches": len(wbatches), "batch_size": batch_size,
+              "points_per_scene": N_POINTS, "max_points": int(wcfg["dataloader"]["max_points"]),
+              "host_seconds": time.perf_counter() - t0})
+        with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
+            train_model, wtrain[path] = train_path(wcfg, wbatches, device, work_dir, path, KERNELS[1:])
+        del train_model
+        torch.cuda.empty_cache()
+        if path == "train_mvf":
+            f32_train_kernels_vs_plain(wcfg, wbatches[0], device, "mvf_f32_train_kernels_vs_plain")
+            torch.cuda.empty_cache()
+            bf16_train_repeat(wcfg, wbatches[0], device, "mvf_bf16_train_repeat")
+        first_batch[path] = wbatches[0]
+        del wbatches
+        torch.cuda.empty_cache()
+    waymo_gathers, waymo_segs = mvf_train_kernel_inputs(waymo["serving_mvf"]["cfg"], first_batch["train_mvf"],
+                                                        device)
+    pp18, = train_step_calls(waymo["serving_waymo_pp18"]["cfg"]["model"], first_batch["train_waymo_pp18"], device,
+                             (densify, "monotone_row_gather"))
+    waymo_gathers += named(("train_waymo_pp18_densify_h8", "train_waymo_pp18_densify_backward"), pp18,
+                           "a Waymo pp18 train step's densify")
+    del first_batch, pp18
+    torch.cuda.empty_cache()
+
     # phase 9: each kernel vs its plain version at the main paths' shapes (after
     # the main paths, so that torch.profiler has not traced the process they run in)
     gen = torch.Generator().manual_seed(0)
@@ -1085,6 +1196,9 @@ def main() -> None:
     for w in waymo.values():
         train_cases += w.pop("gathers")
         sum_cases += w.pop("sums")
+    train_cases += waymo_gathers
+    sum_cases += waymo_segs
+    del waymo_gathers, waymo_segs
     torch.cuda.empty_cache()
     with torch.inference_mode():
         slot, cap = check_pfn(model.reader, points, mask, gen, device, records)
@@ -1138,7 +1252,7 @@ def main() -> None:
 
     paths = {"serving": serve_launches, "serving_voxel18": voxel_launches,
              **{path: w["launches"] for path, w in waymo.items()},
-             "train": train_launches, "train_voxel18": vtrain_launches}
+             "train": train_launches, "train_voxel18": vtrain_launches, **wtrain}
     by_path = {k: {p: n[k] for p, n in paths.items()} for k in KERNELS}
     cases = records["gather_cases"]
     kernels_line = [
@@ -1151,9 +1265,10 @@ def main() -> None:
         line("sorted_segment_bcast", records["sorted_segment_bcast"], "cuda", "pillarnext_tpu_torch/csrc/segscan.cu",
              "pillarnext_tpu/ops/pallas_segscan.py:124", by_path["sorted_segment_bcast"],
              launches_per_train_step={p: by_path["sorted_segment_bcast"][p] / TRAIN_STEPS
-                                      for p in ("train", "train_voxel18")},
+                                      for p in ("train", "train_voxel18", *wtrain)},
              device_launches_per_call=records["sorted_segment_bcast"]["device_launches_per_call"],
-             segment_sums={case: summary(rec) for case, rec in records["segment_sums"].items()}),
+             segment_sums={case: summary(rec) for case, rec in records["segment_sums"].items()},
+             max_broadcasts={case: summary(rec) for case, rec in records["max_broadcasts"].items()}),
     ]
     foreign = sorted(
         m for m in sys.modules

@@ -13,9 +13,12 @@ reference checkpoint schema (``conv``/``norm``, ``block1``/``conv2``/
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 BN_EPS_SPARSE = 1e-3  # PFN + backbone blocks
 BN_EPS_DENSE = 1e-5   # neck / head blocks
@@ -39,13 +42,15 @@ class BatchNorm(nn.Module):
     bias``, computed in float32 and rounded to x's dtype — flax
     ``nn.BatchNorm``.  The running statistics update as
     ``m * running + (1 - m) * batch`` with the biased variance (not torch's
-    unbiased one).  State: weight, bias, running_mean, running_var (no batch
-    counter)."""
+    unbiased one), unless ``update_statistics`` is off (a recomputed
+    forward, ``statistics_frozen``).  State: weight, bias, running_mean,
+    running_var (no batch counter)."""
 
     def __init__(self, channels: int, eps: float, momentum: float):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.update_statistics = True
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -57,6 +62,8 @@ class BatchNorm(nn.Module):
 
     @torch.no_grad()
     def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if not self.update_statistics:
+            return
         m = self.momentum
         self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
@@ -83,6 +90,31 @@ class BatchNorm(nn.Module):
         inv = torch.rsqrt(var + self.eps) * self.weight
         shift = self.bias - mean * inv
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+
+@contextlib.contextmanager
+def statistics_frozen(module: nn.Module):
+    """Inside the block, every BatchNorm of ``module`` leaves its running
+    statistics alone; in train mode it still normalises by the batch's.
+    A block recomputed in the backward (``torch.utils.checkpoint``) runs
+    its forward twice, and only the first pass may update the statistics,
+    as JAX's ``nn.remat`` keeps only the first pass's ``batch_stats``."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_statistics = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_statistics = True
+
+
+def recomputed(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` that keeps only ``x`` for the backward and runs the
+    block again there (``torch.utils.checkpoint``, non-reentrant), with
+    its BatchNorm statistics updated once, by the first pass."""
+    return checkpoint(block, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), statistics_frozen(block)))
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Multi-View Fusion reader (MVF), eval.
+"""Multi-View Fusion reader (MVF), eval and train.
 
 Counterpart of ``MVFFeatureNet`` (pillarnext_tpu/models/mvf_encoder.py:173-316)
 and its parts ``PointNet`` (:42), ``_decorate`` (:58), ``SingleView`` (:77)
@@ -24,13 +24,20 @@ points in pillar order.  The PFN is per point up to a per-cell max, so it
 gives the same table; the cylinder features go back to pillar order for
 the fusion, and the readback runs in pillar order.  The final coarse max
 runs over ids that do not ascend: its forward (``scatter.segment_max``) is
-exact in any order.
+exact in any order, and so is its backward, which counts ties by an
+integer sum.
 
 Dtypes follow the JAX module: the decoration is f32 and the fused features
 are cast to ``dtype``; the readback's f32 weights times the tower's output
-give f32, and ``PointNet`` computes in ``dtype``.  Training (per-block
-remat of the towers, the coarse max's backward over unsorted ids) is not
-ported yet: a train-mode forward raises.
+give f32, and ``PointNet`` computes in ``dtype``.
+
+Training (``self.training``): batch statistics everywhere (masked over the
+valid points in the PFN layers and the PointNets), kernel 3's max
+broadcast in the PFN layers (both views run over ascending slots), each
+tower block recomputed in the backward with its BatchNorm statistics
+updated once (``layers.recomputed``), as JAX remats each block, and a
+readback whose backward sums by kernel 3 (``_Bilinear``).  Every sum of
+the step runs in one order, so two steps give the same bits.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from pillarnext_tpu_torch.models.layers import (
     BatchNorm,
     ConvBlock,
     ResidualBlock,
+    recomputed,
 )
 from pillarnext_tpu_torch.models.pillar_encoder import PFNLayer
 from pillarnext_tpu_torch.ops import scatter
@@ -84,27 +92,56 @@ def _decorate(pos3, tail, u, v, valid, slot, num_segments: int, grid: VoxelGrid,
     return torch.cat([pos3, tail, f_cluster, pos3[:, :2] - center], dim=-1)
 
 
-def _bilinear(image: torch.Tensor, batch_idx: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+class _Bilinear(torch.autograd.Function):
+    """Σ_k ``flat[corners[k]] * weights[k]`` over the four corners, with a
+    backward that gives the same bits on every run: the forward sorts the
+    4N corner rows once, stably; the backward sums each corner's weighted
+    cotangent rows over that order by ``scatter.segment_sum`` (kernel 3's
+    sorted sum on a CUDA tensor; its plain version with ``plain``), which
+    places every corner's sum once.  Autograd's own backward of
+    ``index_select`` is an ``index_add_`` whose CUDA atomics add in
+    another order on each run."""
+
+    @staticmethod
+    def forward(ctx, flat, corners, weights, plain):
+        out = None
+        for k in range(4):
+            term = flat.index_select(0, corners[k]) * weights[k]
+            out = term if out is None else out + term
+        if ctx.needs_input_grad[0]:
+            ids, order = torch.sort(corners.reshape(-1), stable=True)
+            ctx.save_for_backward(ids.int(), order, weights)
+            ctx.rows, ctx.dtype, ctx.plain = flat.shape[0], flat.dtype, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, order, weights = ctx.saved_tensors
+        # corner k of point i is entry k * N + i
+        rows = g.index_select(0, order % g.shape[0])
+        rows.mul_(weights.reshape(-1, 1).index_select(0, order))
+        grad = scatter.segment_sum(rows.to(ctx.dtype), ids, ctx.rows, plain=ctx.plain)
+        return grad, None, None, None
+
+
+def _bilinear(image: torch.Tensor, batch_idx: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+              plain: bool = False):
     """Sample the NHWC ``image`` at fractional (u = column, v = row) per
     point, edge-clamped (mvf_encoder.py:150-170): (N, C) in the promoted
-    dtype of the image and the f32 weights."""
+    dtype of the image and the f32 weights.  The backward is ``_Bilinear``'s
+    (the same bits on every run)."""
     bsz, h, w, c = image.shape
     u0 = torch.floor(u).to(torch.int32).clamp(0, w - 1)
     u1 = (u0 + 1).clamp(0, w - 1)
     v0 = torch.floor(v).to(torch.int32).clamp(0, h - 1)
     v1 = (v0 + 1).clamp(0, h - 1)
-    flat = image.reshape(bsz * h * w, c)
     base = batch_idx * (h * w)
-
-    def at(vv, uu):
-        return flat.index_select(0, (base + vv * w + uu).long())
-
+    corners = torch.stack([base + v0 * w + u0, base + v1 * w + u0, base + v0 * w + u1,
+                           base + v1 * w + u1]).long()
     u0f, v0f = u0.to(u.dtype), v0.to(v.dtype)
-    wa = ((u0f + 1 - u) * (v0f + 1 - v))[:, None]
-    wb = ((u0f + 1 - u) * (v - v0f))[:, None]
-    wc = ((u - u0f) * (v0f + 1 - v))[:, None]
-    wd = ((u - u0f) * (v - v0f))[:, None]
-    return at(v0, u0) * wa + at(v1, u0) * wb + at(v0, u1) * wc + at(v1, u1) * wd
+    weights = torch.stack([(u0f + 1 - u) * (v0f + 1 - v), (u0f + 1 - u) * (v - v0f),
+                           (u - u0f) * (v0f + 1 - v), (u - u0f) * (v - v0f)])[:, :, None]
+    return _Bilinear.apply(image.reshape(bsz * h * w, c), corners, weights, plain)
 
 
 class SingleView(nn.Module):
@@ -148,14 +185,16 @@ class SingleView(nn.Module):
         x = x.permute(0, 3, 1, 2)
         for stage in self.blocks:
             for block in stage:
-                x = block(x)
+                # training keeps only each block's input and recomputes the
+                # block in the backward (JAX remats each block, mvf_encoder.py:115-120)
+                x = recomputed(block, x) if self.training else block(x)
         u, v = divide(readback.fu, self.ds), divide(readback.fv, self.ds)
-        return _bilinear(x.permute(0, 2, 3, 1), batch_idx, u, v)
+        return _bilinear(x.permute(0, 2, 3, 1), batch_idx, u, v, plain)
 
 
 class MVFFeatureNet(nn.Module):
     """Points (B, N, D) + mask (B, N) -> dense (B, H/ds, W/ds, out_channels)
-    NHWC, eval only."""
+    NHWC, eval and train."""
 
     def __init__(
         self,
@@ -203,11 +242,6 @@ class MVFFeatureNet(nn.Module):
         ``pillar_overflow`` / ``cylinder_active`` / ``cylinder_overflow`` as
         device scalars; ``plain`` keeps CUDA tensors on the kernels' plain
         versions."""
-        if self.training:
-            raise NotImplementedError(
-                "MVFFeatureNet training (per-block remat of the view towers, the coarse max's "
-                "backward over unsorted ids) is not ported yet, see ROADMAP"
-            )
         b, n, d = points.shape
         if d != self.in_channels:
             raise ValueError(f"points have {d} features, expected {self.in_channels}")
@@ -232,6 +266,8 @@ class MVFFeatureNet(nn.Module):
             telemetry["cylinder_active"] = n_c
             telemetry["cylinder_overflow"] = torch.clamp(n_c - cap_c, min=0)
 
+        # no parameter reaches the decoration or the two view permutations, so
+        # autograd records none of them: the fused features carry no gradient
         tail = pts[:, 3:]
         pillar_feats = _decorate(pts[:, :3], tail, pv.u, pv.v, valid, slot_p, cap_p + 1, pg, plain)
         valid_c = valid[order_c]

@@ -167,6 +167,17 @@ class SparseResNet(nn.Module):
             BatchNorm(out_channels, BN_EPS_SPARSE, BN_MOMENTUM_SPARSE),
         )
 
+    def table_capacities(self, cap: int, batch: int, spatial: tuple) -> dict:
+        """Rows of each strided stage's table in training (``stage{i}``),
+        for a reader table of ``cap`` rows over ``batch`` x ``spatial`` (H, W)."""
+        caps = {}
+        for i, s in enumerate(self.strides):
+            if s > 1:
+                spatial = tuple(-(-n // s) for n in spatial)
+                frac = float(self.stage_capacity_frac[i])
+                caps[f"stage{i}"] = min(max(int(cap * frac), 4096), batch * spatial[0] * spatial[1])
+        return caps
+
     def forward(self, sb: SparseBEV, plain: bool = False, telemetry=None) -> torch.Tensor:
         """SparseBEV -> (B, H', W', out_channels) NHWC.  ``telemetry`` (a
         dict) receives the strided stages' active and overflow counts in
@@ -206,15 +217,14 @@ class SparseResNet(nn.Module):
         """The whole backbone over compact tables (resnet.py:719-805)."""
         batch, spatial = sb.batch, sb.spatial
         table, valid, sod, slot_id = sb.table[:-1], sb.valid, sb.slot_of_dense, sb.slot_id
-        cap0 = sb.capacity
+        caps = self.table_capacities(sb.capacity, batch, spatial)
         for i, stage in enumerate(self.blocks):
             k, s = self.kernel_size[i], self.strides[i]
             if s == 1:
                 nbr = build_neighbor_table(sod, slot_id, spatial, subm_offsets_2d(k), valid.shape[0])
                 table = sparse_conv_block(stage[0], table, valid, nbr)
             else:
-                out_hw = -(-spatial[0] // s) * -(-spatial[1] // s)
-                cap_out = min(max(int(cap0 * float(self.stage_capacity_frac[i])), 4096), batch * out_hw)
+                cap_out = caps[f"stage{i}"]
                 out_slot_id, out_sod, out_valid, out_sp, n_out = downsample_active_set(
                     sod, valid.shape[0], batch, spatial, (k, k), (s, s), cap_out
                 )

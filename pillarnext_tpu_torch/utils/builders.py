@@ -51,8 +51,10 @@ def build_model(model_cfg: dict, device="cuda:0", generator: torch.Generator | N
     (serving keeps ``pillar_capacity``; the voxel reader keeps
     ``voxel_capacity`` in both, as JAX does) and returns the model in train
     mode; otherwise in eval mode.  An MVF reader (``MVFFeatureNet``) feeds
-    the neck directly (its detector has no backbone) and is eval only:
-    ``train=True`` raises for it.  With ``generator`` the parameters are
+    the neck directly (its detector has no backbone) and keeps
+    ``pillar_capacity`` and ``cylinder_capacity`` in both modes (its config
+    has no train capacity); in training it recomputes each tower block in
+    the backward.  With ``generator`` the parameters are
     drawn from it (utils/weights.py: init_random); otherwise load weights
     afterwards.
     """
@@ -85,11 +87,6 @@ def build_model(model_cfg: dict, device="cuda:0", generator: torch.Generator | N
         # the dense (B, 40, 1344, 1344, C) volume would not fit the card; in
         # training too (JAX utils/builders.py:85-93)
         rd.setdefault("output", "sparse")
-    if reader_name == "MVFFeatureNet" and train:
-        raise NotImplementedError(
-            "MVFFeatureNet training (per-block remat of the view towers, the coarse max's "
-            "backward over unsorted ids) is not ported yet, see ROADMAP"
-        )
     check_targets(cfg)
     model = instantiate(cfg, registry=PORT_REGISTRY)
     if train and train_cap:

@@ -854,3 +854,130 @@ def test_densify_at_mvf_pillar_shape_is_bit_identical(device):
     assert got.shape == (dense_rows, c)
     assert torch.equal(got, want)
     assert int((got != 0).any(1).sum()) == 65_300
+
+
+# ------------------------------------------ MVF training: the new backwards
+
+
+def test_coarse_max_backward_on_the_card_matches_the_cpu(device):
+    """MVF's coarse max (``segment_max`` over ids that do not ascend:
+    integer tie counts) at 300,000 rows of 32 bf16 channels with many
+    ties: the card's forward and backward equal the CPU's bit for bit.
+    Over the same rows sorted by id, the gradient is the same bits,
+    permuted, and no kernel launches: the count is an int32
+    ``scatter_add_`` in any order."""
+    from pillarnext_tpu_torch.ops.scatter import segment_max
+
+    g = torch.Generator().manual_seed(21)
+    n, c, segs = 300_000, 32, 20_000
+    data = torch.randint(0, 6, (n, c), generator=g).to(torch.bfloat16)
+    ids = torch.randint(0, segs, (n,), generator=g).to(torch.int32)
+    cot = torch.randn(segs, c, generator=g).to(torch.bfloat16)
+
+    def run(x, seg):
+        x = x.clone().requires_grad_()
+        out = segment_max(x, seg, segs)
+        out.backward(cot.to(x.device))
+        return out.detach().cpu(), x.grad.cpu()
+
+    want = run(data, ids)
+    got = run(data.to(device), ids.to(device))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int((want[1] != 0).sum()) > segs * c  # ties split
+    order = torch.sort(ids, stable=True).indices
+    launches = sorted_segment_bcast.launches
+    by_sorted = run(data[order].to(device), ids[order].to(device))
+    assert sorted_segment_bcast.launches == launches
+    assert torch.equal(by_sorted[0], want[0]) and torch.equal(by_sorted[1], want[1][order])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_readback_backward_is_the_same_bits_twice(device, dtype):
+    """MVF's bilinear readback (``_bilinear``) of 300,000 points from a
+    (2, 64, 64, 48) map, edge clamps included: its backward on the card
+    (kernel 3's sorted sum) gives the same bits twice, one kernel 3 launch
+    each, and agrees with the CPU's (f32: 1e-5 of the largest magnitude;
+    bf16: 1e-2, one rounding of sums in another order)."""
+    from pillarnext_tpu_torch.models.mvf_encoder import _bilinear
+
+    g = torch.Generator().manual_seed(22)
+    n = 300_000
+    image = torch.randn(2, 64, 64, 48, generator=g).to(dtype)
+    u = torch.rand(n, generator=g) * 66 - 1
+    v = torch.rand(n, generator=g) * 66 - 1
+    batch = torch.randint(0, 2, (n,), generator=g).to(torch.int32)
+    cot = torch.randn(n, 48, generator=g)
+
+    def run(dev):
+        x = image.to(dev).detach().requires_grad_()
+        _bilinear(x, batch.to(dev), u.to(dev), v.to(dev)).backward(cot.to(dev))
+        return x.grad.cpu()
+
+    want = run("cpu")
+    launches = sorted_segment_bcast.launches
+    first, second = run(device), run(device)
+    assert sorted_segment_bcast.launches == launches + 2
+    assert torch.equal(first, second)
+    bar = (1e-5 if dtype == torch.float32 else 1e-2) * float(want.float().abs().max())
+    assert float((first.float() - want.float()).abs().max()) <= bar
+
+
+def test_recomputed_block_updates_bn_statistics_once(device):
+    """A ResidualBlock of MVF's pillar tower (48 channels, f32, TF32 off) in
+    training through ``layers.recomputed``: it runs twice (the forward and
+    its recompute in the backward), its running statistics are those of one
+    plain forward, bit for bit, and its gradients agree with the plain
+    block's to 1e-5 of their largest magnitude."""
+    import copy
+
+    from pillarnext_tpu_torch.models.detector import full_f32
+    from pillarnext_tpu_torch.models.layers import ResidualBlock, recomputed
+
+    g = torch.Generator().manual_seed(23)
+    block = ResidualBlock(48).to(device).train()
+    plain = copy.deepcopy(block)
+    x = torch.randn(2, 48, 128, 128, generator=g).to(device).to(memory_format=torch.channels_last)
+    cot = torch.randn(2, 48, 128, 128, generator=g).to(device)
+    calls = []
+    block.register_forward_pre_hook(lambda *_: calls.append(1))
+    with full_f32():
+        xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+        recomputed(block, xa).backward(cot)
+        plain(xb).backward(cot)
+    assert len(calls) == 2
+    for (name, a), b in zip(block.named_buffers(), plain.buffers()):
+        assert torch.equal(a, b), name
+    for (name, a), b in zip([("x", xa)] + list(block.named_parameters()), [xb] + list(plain.parameters())):
+        assert float((a.grad - b.grad).abs().max()) <= 1e-5 * float(b.grad.abs().max()), name
+
+
+def test_small_mvf_train_step_gpu_matches_cpu(device):
+    """One f32 train step of the narrowed MVF on the card (kernels 2 and 3,
+    the towers recomputed) and on the CPU (plain versions), same weights and
+    batch: loss within 1e-4 relative, same telemetry.  Per view: kernel 2's
+    cluster-mean gather, densify and densify backward; kernel 3's
+    decoration mean, the PFN's max broadcast and its backward's two sums,
+    and the readback's backward sum."""
+    from pillarnext_tpu_torch.data.synthetic import synthetic_batches
+    from pillarnext_tpu_torch.train.train_state import train_step
+    from pillarnext_tpu_torch.train.trainer import batch_to_device
+    from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    cfg = load_experiment(REPO_CONFIGS / "waymo_det_mvf18_aspp_iou_car.yaml", SMALL_MVF)
+    batch = synthetic_batches(cfg, 1, 2, 3000, seed=3, n_objects=4, max_points=4000)[0]
+    results = {}
+    for dev in ("cpu", device):
+        model = build_model(cfg["model"], device=dev, generator=torch.Generator().manual_seed(0), train=True)
+        opt, _ = build_optimizer(cfg, 10, list(model.parameters()))
+        launches = (monotone_row_gather.launches, sorted_segment_bcast.launches)
+        scalars, _ = train_step(model, opt, batch_to_device(batch, dev))
+        results[str(dev)] = (
+            float(scalars["loss"]),
+            {k: int(v) for k, v in scalars["telemetry"].items()},
+            (monotone_row_gather.launches - launches[0], sorted_segment_bcast.launches - launches[1]),
+        )
+    cpu, gpu = results["cpu"], results[str(device)]
+    assert gpu[0] == pytest.approx(cpu[0], rel=1e-4)
+    assert gpu[1] == cpu[1] and gpu[1]["cylinder_overflow"] == 0
+    assert cpu[2] == (0, 0) and gpu[2] == (6, 10)

@@ -324,12 +324,19 @@ def test_mvf_overflow_is_repaired_or_raises_as_jax_does(mvf):
 
 
 def test_build_model_mvf_defaults_to_the_card_and_refuses_training():
+    """Eval and training both default to the card (and raise without one);
+    on the CPU ``train=True`` builds the MVF detector in train mode with the
+    config's capacities (it has no train capacity), and a train-mode
+    forward gives the BEV with a gradient.  (The name dates from before
+    MVF trained, when both refused.)"""
     cfg = load_experiment(MVF)["model"]
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="cuda"):
-            build_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(small_mvf_cfg(), device="cpu", train=True)
-    model = build_model(small_mvf_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.train().reader(torch.zeros(1, 4, 5), torch.ones(1, 4, dtype=torch.bool))
+        for train in (False, True):
+            with pytest.raises(RuntimeError, match="cuda"):
+                build_model(cfg, train=train)
+    model = build_model(small_mvf_cfg(), device="cpu", train=True)
+    assert model.training and model.reader.training
+    assert (model.reader.pillar_capacity, model.reader.cylinder_capacity) == (4096, 1024)
+    pts, mask = lidar_like_points(1, 500, PC, seed=0)
+    bev = model.reader(torch.from_numpy(pts), torch.from_numpy(mask))
+    assert bev.shape == (1, 8, 8, 16) and bev.requires_grad

@@ -7,8 +7,9 @@ flagship-structured model on the CPU, runs one predict and one train
 step, and then requires that no module named ``jax*``, ``flax*``,
 ``pillarnext_tpu`` or ``pillarnext_tpu.*`` was imported.  Two more
 interpreters do the same for a predict of the small voxel18 model and for
-a voxel18 train step through the Trainer, and one for a predict of the
-small MVF model (waymo_det_mvf18_aspp_iou_car).
+a voxel18 train step through the Trainer, one for a predict of the
+small MVF model (waymo_det_mvf18_aspp_iou_car) and one for an MVF train
+step through the Trainer.
 """
 
 from __future__ import annotations
@@ -233,6 +234,63 @@ def test_port_mvf_predict_imports_no_jax():
     assert (result["reader"], result["backbone"]) == ("MVFFeatureNet", True)
     assert result["shape"] == [1, 3 * 500, 9]
     assert result["finite"]
+    assert result["loaded"] == []
+
+
+MVF_TRAIN_SCRIPT = r"""
+import json, sys, tempfile
+import torch
+from pillarnext_tpu_torch.data.synthetic import synthetic_batches
+from pillarnext_tpu_torch.train.trainer import Trainer
+from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
+from pillarnext_tpu_torch.utils.config import load_experiment
+
+pc = [-8.0, -8.0, -10.0, 8.0, 8.0, 10.0]
+cfg = load_experiment(sys.argv[1], [
+    f"model.reader.pc_range={pc}", "model.reader.voxel_size=[0.25,0.25,20.0]",
+    "model.reader.cylinder_size=[5.625,0.375,10.0]",
+    "model.reader.cylinder_range=[-180.0,-3.0,0.0,180.0,3.0,10.0]",
+    "model.reader.num_filters=[8,8]", "model.reader.ds_num_filters=[8,12,16,16]",
+    "model.reader.out_channels=16", "model.reader.pillar_capacity=4096",
+    "model.reader.cylinder_capacity=1024", "model.neck.in_channels=16",
+    "model.head.in_channels=16", "+model.head.share_conv_channel=16",
+])
+model = build_model(cfg["model"], device="cpu", generator=torch.Generator().manual_seed(0), train=True)
+batches = synthetic_batches(cfg, 1, 1, 2000, seed=0, n_objects=3, max_points=3000)
+opt, sched = build_optimizer(cfg, len(batches), list(model.parameters()))
+with tempfile.TemporaryDirectory() as work_dir:
+    trainer = Trainer(model, batches, opt, sched, max_epochs=1, work_dir=work_dir, device="cpu")
+    trainer.fit()
+
+def foreign(name):
+    top = name.split(".")[0]
+    return top.startswith("jax") or top.startswith("flax") or top == "pillarnext_tpu"
+
+print(json.dumps({
+    "reader": type(model.reader).__name__,
+    "loss_finite": bool(torch.isfinite(trainer.last_scalars["loss"])),
+    "step": trainer.step,
+    "telemetry": sorted(trainer.last_scalars["telemetry"]),
+    "loaded": sorted(m for m in sys.modules if foreign(m)),
+}))
+"""
+
+
+def test_port_mvf_train_step_imports_no_jax():
+    """A bf16 MVF train step through the Trainer (the towers recomputed in
+    the backward), in a fresh interpreter that imports only the port."""
+    mvf = REPO / "pillarnext_tpu/configs/experiments/waymo_det_mvf18_aspp_iou_car.yaml"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", MVF_TRAIN_SCRIPT, str(mvf)],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["reader"] == "MVFFeatureNet"
+    assert result["loss_finite"]
+    assert result["step"] == 1
+    assert result["telemetry"] == ["cylinder_active", "cylinder_overflow", "pillar_active", "pillar_overflow"]
     assert result["loaded"] == []
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import math
 
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +37,7 @@ import torch
 from pillarnext_tpu.train import train_state as jax_ts
 from pillarnext_tpu.utils import builders as jax_builders
 from pillarnext_tpu_torch.data.synthetic import synthetic_batches
+from pillarnext_tpu_torch.models import mvf_encoder
 from pillarnext_tpu_torch.train import checkpoint as ckpt_lib
 from pillarnext_tpu_torch.train.train_state import train_step
 from pillarnext_tpu_torch.train.trainer import Trainer, batch_to_device
@@ -52,11 +54,12 @@ NEAR_DRAWS = 16
 
 
 class VoxelPair:
-    """The narrowed voxel18 in both packages; JAX's train step is compiled
-    once and serves every seed (the shapes do not change)."""
+    """The narrowed voxel18 (or the experiment at ``path`` with
+    ``overrides``) in both packages; JAX's train step is compiled once and
+    serves every seed (the shapes do not change)."""
 
-    def __init__(self):
-        self.cfg = load_experiment(VOXEL18, OVERRIDES)
+    def __init__(self, path=VOXEL18, overrides=OVERRIDES):
+        self.cfg = load_experiment(path, overrides)
         self.jmodel = jax_builders.build_model(self.cfg["model"], train=True)
         self.jax_step = jax_ts.make_train_step(self.jmodel, RECORD, None, donate=False)
         self.shapes = None
@@ -111,10 +114,14 @@ def pair():
     return VoxelPair()
 
 
-@pytest.fixture(scope="module")
-def steps(pair):
-    batch = pair.batch(DATA_SEED)
-    variables = pair.variables(batch, WEIGHT_SEED)
+def one_step(pair: VoxelPair, data_seed: int = DATA_SEED, weight_seed: int = WEIGHT_SEED) -> dict:
+    """One train step of ``pair`` in both packages from the same batch and
+    weights: JAX's loss, logs, telemetry, gradients, parameters after
+    AdamW and BN statistics, and the port's model after its step, its
+    scalars and logs, with JAX's gradients and parameters under the port's
+    state_dict names."""
+    batch = pair.batch(data_seed)
+    variables = pair.variables(batch, weight_seed)
     params, stats = variables["params"], variables["batch_stats"]
     new_state, scalars, logs = pair.run_jax(variables, batch)
     grads = new_state.opt_state["g"]
@@ -134,10 +141,17 @@ def steps(pair):
     }
 
 
-def test_voxel18_train_step_loss_and_logs_match_jax(steps):
+@pytest.fixture(scope="module")
+def steps(pair):
+    return one_step(pair)
+
+
+def check_loss_and_logs(steps: dict, n_tasks: int) -> None:
+    """The loss within 1e-5 relative and each task's logs within 1e-4,
+    over at least 4 positive targets."""
     j, scalars, logs = steps["jax"], steps["scalars"], steps["logs"]
     assert float(scalars["loss"]) == pytest.approx(j["loss"], rel=1e-5)
-    assert len(logs) == len(j["logs"]) == 6
+    assert len(logs) == len(j["logs"]) == n_tasks
     positives = 0
     for got, want in zip(logs, j["logs"]):
         assert set(got) == set(want)
@@ -149,9 +163,13 @@ def test_voxel18_train_step_loss_and_logs_match_jax(steps):
     assert positives >= 4, "vacuous: too few positive targets"
 
 
-def test_voxel18_train_step_gradients_match_jax(steps):
+def check_gradients(steps: dict) -> tuple[int, set]:
+    """Every gradient within 1e-3 of its largest JAX magnitude + 1e-6 (the
+    conv biases that feed a train-mode BatchNorm: rounding noise on both
+    sides); returns the count of tensors held to the bar and the names of
+    those whose JAX gradient is not all zero."""
     model, want = steps["model"], steps["grads_sd"]
-    checked = backbone = 0
+    checked, nonzero = 0, set()
     for name, p in model.named_parameters():
         got, ref = p.grad.numpy(), want[name]
         assert got.shape == ref.shape, name
@@ -163,21 +181,25 @@ def test_voxel18_train_step_gradients_match_jax(steps):
         bar = 1e-3 * np.abs(ref).max() + 1e-6
         assert np.abs(got - ref).max() <= bar, (name, float(np.abs(got - ref).max()), bar)
         checked += 1
-        backbone += name.startswith("backbone.") and np.abs(ref).max() > 0
-    assert checked > 100
-    # every backbone tensor gets a gradient: stage convs, extra z-conv, mapping
-    assert backbone == sum(n.startswith("backbone.") for n, _ in model.named_parameters())
+        if np.abs(ref).max() > 0:
+            nonzero.add(name)
+    return checked, nonzero
 
 
-def test_voxel18_train_step_bn_statistics_match_jax(steps):
+def check_bn_statistics(steps: dict) -> int:
+    """Every BN running statistic after the step within 1e-5; returns
+    their count."""
     model, want = steps["model"], steps["after_sd"]
     stats = {k: v for k, v in model.state_dict().items() if k.endswith(("running_mean", "running_var"))}
-    assert len(stats) == sum(k.endswith(("running_mean", "running_var")) for k in want) > 50
+    assert len(stats) == sum(k.endswith(("running_mean", "running_var")) for k in want)
     for name, buf in stats.items():
         np.testing.assert_allclose(buf.numpy(), want[name], rtol=1e-5, atol=1e-5, err_msg=name)
+    return len(stats)
 
 
-def test_voxel18_train_step_adamw_parameters_match_jax(steps):
+def check_adamw(steps: dict) -> None:
+    """Parameters after AdamW within 1e-5, 2.5 lr where the gradient is
+    rounding noise (under 5% of all entries)."""
     model, want, grads = steps["model"], steps["after_sd"], steps["grads_sd"]
     lr0 = steps["lr0"]
     n_noise = n_total = 0
@@ -191,6 +213,26 @@ def test_voxel18_train_step_adamw_parameters_match_jax(steps):
         n_noise += int(noise.sum())
         n_total += noise.size
     assert n_noise < 0.05 * n_total, (n_noise, n_total)
+
+
+def test_voxel18_train_step_loss_and_logs_match_jax(steps):
+    check_loss_and_logs(steps, 6)
+
+
+def test_voxel18_train_step_gradients_match_jax(steps):
+    checked, nonzero = check_gradients(steps)
+    assert checked > 100
+    # every backbone tensor gets a gradient: stage convs, extra z-conv, mapping
+    backbone = {n for n, _ in steps["model"].named_parameters() if n.startswith("backbone.")}
+    assert backbone <= nonzero
+
+
+def test_voxel18_train_step_bn_statistics_match_jax(steps):
+    assert check_bn_statistics(steps) > 50
+
+
+def test_voxel18_train_step_adamw_parameters_match_jax(steps):
+    check_adamw(steps)
 
 
 def test_voxel18_train_step_telemetry_matches_jax(steps):
@@ -217,24 +259,180 @@ def test_voxel18_synthetic_labels_on_the_head_grid(steps):
         assert tuple(pred["hm"].shape[1:3]) == hm.shape[1:3]
 
 
-def gradient_gap(pair: VoxelPair, seed: int, draw: int) -> tuple[float, float, float]:
-    """(largest gradient difference over the bar's scale 1e-3 max|g_jax|
-    of its tensor (<= 1 passes), the same as a fraction of max|g_jax|,
-    relative loss difference) of one train step at data and weight seed
-    ``seed``, weight draw ``draw``."""
-    batch = pair.batch(seed)
-    variables = pair.variables(batch, seed, draw)
-    new_state, scalars, _ = pair.run_jax(variables, batch)
-    model, _, pscalars, _ = pair.run_port(variables, batch)
-    want = pair.export(model, _np(new_state.opt_state["g"]), variables["batch_stats"])
+class ReluTrace:
+    """Every ReLU input of one train step of ``pair`` in both packages, and
+    the port's step with its ReLU masks pinned to JAX's: two f32
+    implementations can put a ReLU input on opposite sides of 0, and every
+    gradient below it then moves by far more than the bar.
+
+    JAX: the train-mode forward of ``loss`` (what ``make_train_step``
+    differentiates), with ``flax.linen.relu`` replaced while it is traced
+    by one that hands its input to the host (``jax.debug.callback``), in
+    program order; compiled once for the module.  The port:
+    ``train_state.train_step`` as it runs (towers recomputed in the
+    backward) with ``torch.relu`` replaced by one that records each input
+    the first time it sees it; a recomputed block's ReLUs see the same
+    bits again and take the same index.  Inputs are compared in the port's
+    layout: JAX's maps transposed to NCHW, and MVF's cylinder view's point
+    rows, which the port runs in cylinder order, permuted by the MVF
+    reader's second ``compactify`` order."""
+
+    def __init__(self, pair: VoxelPair):
+        self.pair = pair
+        self.results: dict = {}
+        self.store: dict = {}
+        self.count = 0
+
+        def forward(variables, batch):
+            (loss, _), _ = pair.jmodel.apply(variables, batch, train=True, method=pair.jmodel.loss,
+                                             mutable=["batch_stats", "telemetry"])
+            return loss
+
+        self.forward = jax.jit(forward)
+
+    def jax_inputs(self, variables: dict, batch: dict) -> list:
+        relu = fnn.relu
+
+        def recording(x):
+            i, self.count = self.count, self.count + 1
+            jax.debug.callback(lambda v, i=i: self.store.__setitem__(i, np.asarray(v)), x)
+            return relu(x)
+
+        self.store.clear()
+        fnn.relu = recording  # read only when the forward is traced, on the first call
+        try:
+            jax.block_until_ready(self.forward(variables, jax.tree.map(jnp.asarray, batch)))
+            jax.effects_barrier()
+        finally:
+            fnn.relu = relu
+        assert sorted(self.store) == list(range(self.count)) and self.count > 0
+        return [self.store[i] for i in range(self.count)]
+
+    def port_step(self, variables: dict, batch: dict, pinned: list | None = None):
+        """(model after the step, scalars, logs, ReLU inputs in first-seen
+        order, the reader's compactify orders); with ``pinned`` (JAX's
+        inputs) each ReLU passes ``x`` where JAX's input is positive."""
+        inputs, index, orders = [], {}, []
+        relu, compactify = torch.relu, mvf_encoder.compactify
+
+        def hooked_relu(x):
+            key = (tuple(x.shape), x.detach().numpy().tobytes())
+            if key not in index:
+                index[key] = len(inputs)
+                inputs.append(x.detach().clone())
+            if pinned is None:
+                return relu(x)
+            i = index[key]
+            return torch.where(torch.from_numpy(as_port(pinned[i], inputs[i].numpy(), orders) > 0), x, 0.0)
+
+        def hooked_compactify(*args, **kwargs):
+            out = compactify(*args, **kwargs)
+            orders.append(out[0])
+            return out
+
+        torch.relu, mvf_encoder.compactify = hooked_relu, hooked_compactify
+        try:
+            model, _, scalars, logs = self.pair.run_port(variables, batch)
+        finally:
+            torch.relu, mvf_encoder.compactify = relu, compactify
+        return model, scalars, logs, [t.numpy() for t in inputs], orders
+
+
+def as_port(a: np.ndarray, like: np.ndarray, orders: list) -> np.ndarray:
+    """JAX's ReLU input ``a`` in the layout of the port's ``like``: NHWC
+    maps as NCHW; point rows as they are or, for the cylinder view's,
+    permuted into cylinder order (whichever lies nearer ``like``)."""
+    if a.ndim == 4:
+        return a.transpose(0, 3, 1, 2)
+    if len(orders) < 2 or orders[1].shape[0] != a.shape[0]:
+        return a
+    permuted = a[orders[1].numpy()]
+    return a if np.abs(a - like).max() <= np.abs(permuted - like).max() else permuted
+
+
+def gradient_ratio(model, want: dict) -> tuple[float, float]:
+    """(the largest gradient difference over the bar's scale 1e-3
+    max|g_jax| + 1e-6 of its tensor (<= 1 passes), the same as a fraction
+    of max|g_jax|), skipping the conv biases that feed a train-mode
+    BatchNorm (analytically zero: held in the full test)."""
     ratio = frac = 0.0
     for name, p in model.named_parameters():
-        if _feeds_train_bn(name):  # analytically zero: held in the full test
+        if _feeds_train_bn(name):
             continue
         ref = want[name]
         d = float(np.abs(p.grad.numpy() - ref).max())
         ratio = max(ratio, d / (1e-3 * np.abs(ref).max() + 1e-6))
         frac = max(frac, d / max(float(np.abs(ref).max()), 1e-30))
+    return ratio, frac
+
+
+def relu_flips(trace: ReluTrace, data_seed: int, weight_seed: int) -> dict:
+    """One step at (data, weight seed) in JAX, in the port and in the port
+    with JAX's ReLU masks: the relative loss gap, the gradient ratio free
+    and pinned, the number of ReLU calls, and per ReLU call whose inputs
+    differ in sign: (call, count, the largest |input| on either side at
+    those elements, the largest |JAX - port| where the signs agree, the
+    call's largest |JAX input|).
+    Kept in ``trace.results``."""
+    key = (data_seed, weight_seed)
+    if key in trace.results:
+        return trace.results[key]
+    pair = trace.pair
+    batch = pair.batch(data_seed)
+    variables = pair.variables(batch, weight_seed)
+    jax_in = trace.jax_inputs(variables, batch)
+    new_state, scalars, _ = pair.run_jax(variables, batch)
+    model, pscalars, _, port_in, orders = trace.port_step(variables, batch)
+    want = pair.export(model, _np(new_state.opt_state["g"]), variables["batch_stats"])
+    assert len(port_in) == len(jax_in)
+    flips = []
+    for i, (a, b) in enumerate(zip(jax_in, port_in)):
+        a = as_port(a, b, orders)
+        flip = (a > 0) != (b > 0)
+        if flip.any():
+            flips.append((i, int(flip.sum()), float(np.maximum(np.abs(a), np.abs(b))[flip].max()),
+                          float(np.abs(a - b)[~flip].max()), float(np.abs(a).max())))
+    pinned_model = trace.port_step(variables, batch, pinned=jax_in)[0]
+    loss = float(scalars["loss"])
+    trace.results[key] = {
+        "loss_rel": abs(float(pscalars["loss"]) - loss) / abs(loss),
+        "free": gradient_ratio(model, want)[0], "pinned": gradient_ratio(pinned_model, want)[0],
+        "calls": len(jax_in), "flips": flips,
+    }
+    return trace.results[key]
+
+
+def check_flips(r: dict) -> None:
+    """Every ReLU input whose sign differs between the packages lies
+    within the rounding noise of its own call (no larger than the largest
+    |JAX - port| where the signs agree), and with JAX's masks the port's
+    gradients meet the bar."""
+    for call, count, size, noise, _ in r["flips"]:
+        assert size <= noise, (call, count, size, noise)
+    assert r["pinned"] <= 1.0, r
+
+
+def flip_sweep(trace: ReluTrace, data_seeds=range(4), weight_seeds=range(3)) -> None:
+    """Print ``relu_flips`` at each data / weight seed."""
+    print("data weight  calls  loss_rel  free_ratio  pinned_ratio  "
+          "flips (call, count, largest |x|, call's noise, call's largest |x|)")
+    for d in data_seeds:
+        for w in weight_seeds:
+            r = relu_flips(trace, d, w)
+            flips = [(c, n, f"{x:.2e}", f"{z:.2e}", f"{m:.3g}") for c, n, x, z, m in r["flips"]]
+            print(f"{d:4d} {w:6d}  {r['calls']:5d}  {r['loss_rel']:.2e}  {r['free']:10.3g}  {r['pinned']:12.3g}  "
+                  f"{flips}", flush=True)
+
+
+def gradient_gap(pair: VoxelPair, seed: int, draw: int) -> tuple[float, float, float]:
+    """(``gradient_ratio``'s two numbers, relative loss difference) of one
+    train step at data and weight seed ``seed``, weight draw ``draw``."""
+    batch = pair.batch(seed)
+    variables = pair.variables(batch, seed, draw)
+    new_state, scalars, _ = pair.run_jax(variables, batch)
+    model, _, pscalars, _ = pair.run_port(variables, batch)
+    want = pair.export(model, _np(new_state.opt_state["g"]), variables["batch_stats"])
+    ratio, frac = gradient_ratio(model, want)
     loss = float(scalars["loss"])
     return ratio, frac, abs(float(pscalars["loss"]) - loss) / abs(loss)
 
