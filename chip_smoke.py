@@ -33,6 +33,14 @@ width, random weights from a seed:
   and the coarse max's backwards); for MVF also an f32 step with the
   kernels against their plain versions and two bf16 steps that must give
   the same bits;
+- cli_train, cli_test: the port's CLIs in this process (``cli.train.main``,
+  ``cli.test.main``) on a nuScenes-format tree the script writes from its
+  seed (8 train and 8 val samples of 10 sweeps, ~300k points a sample, a
+  GT database): the flagship as its YAML gives it trains 2 steps, runs the
+  epoch's ``val_epoch`` and the scorer, and ``cli.test`` scores the
+  checkpoint; step and loader-wait ms, host ms per sample (GT paste
+  apart), val ms per batch, repairs and scorer seconds; ``cli.test``'s
+  detections must be the bits of ``cli.train``'s;
 
 then holds each kernel against its plain PyTorch version at the shapes
 those paths give it.  Kernel 3 (``sorted_segment_bcast``) also carries
@@ -88,6 +96,11 @@ PROFILE_WINDOWS = 4
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel, launched between profiled calls
 LATENCY_FRAMES = 10
 TRAIN_STEPS = 5
+CLI_SAMPLES = 8  # train and val samples of the CLIs' nuScenes tree
+SWEEPS = 10
+SWEEP_POINTS = 30_000
+POINTS_PER_SURFACE = 40  # the CLIs' scenes: ~55k occupied pillars a 300k-point frame
+DB_CROPS = 24  # GT-database crops per class
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
 
@@ -1011,6 +1024,297 @@ def bf16_train_repeat(cfg, batch, device, phase: str):
         raise AssertionError(f"two bf16 train steps differ: {rec}")
 
 
+def write_nuscenes_tree(root: Path, pc_range, class_names: list, seed: int) -> dict:
+    """A nuScenes-format tree (the infos pickle schema of the converter, .bin
+    sweeps, a GT database) of ``CLI_SAMPLES`` train and as many val samples.
+
+    Each sample is one synthetic scene of ``SWEEPS x SWEEP_POINTS`` points
+    (``utils/synth.synth_detection_scene``: 20-40 GT boxes at class-typical
+    sizes over beam-structured ``lidar_like_points`` surfaces of
+    ``POINTS_PER_SURFACE`` points, so that the sweeps see the same surfaces
+    and a frame occupies ~55k pillars, as real 10-sweep frames occupy
+    40-65k of the 1344^2), dealt into a keyframe and ``SWEEPS - 1``
+    sweeps; sweep k is written in the frame of an ego ``0.5 k`` m behind
+    (and 0.002 k rad turned), with the transform back to the keyframe and
+    ``time_lag`` 0.05 k in its info, as a 10-sweep nuScenes frame has
+    them.  The GT database holds ``DB_CROPS`` crops of each class."""
+    import pickle
+
+    import numpy as np
+
+    from pillarnext_tpu_torch.utils.synth import CLASS_SPECS, synth_detection_scene
+
+    rng = np.random.default_rng(seed)
+    (root / "samples").mkdir(parents=True)
+    (root / "gtdb").mkdir()
+
+    def sweep_transform(k):
+        c, s = math.cos(0.002 * k), math.sin(0.002 * k)
+        tm = np.eye(4)
+        tm[:2, :2] = [[c, -s], [s, c]]
+        tm[0, 3] = -0.5 * k
+        return tm
+
+    def split(split_name):
+        infos = []
+        for i in range(CLI_SAMPLES):
+            token = f"{split_name}_{i:02d}"
+            pts, boxes, names = synth_detection_scene(rng, SWEEPS * SWEEP_POINTS, pc_range,
+                                                      int(rng.integers(20, 41)), class_names,
+                                                      points_per_surface=POINTS_PER_SURFACE)
+            pts = pts[rng.permutation(len(pts))]
+            sweeps = []
+            for k, chunk in enumerate(np.array_split(pts, SWEEPS)):
+                path = f"samples/{token}_{k}.bin"
+                if k:
+                    tm = sweep_transform(k)
+                    chunk = chunk.copy()
+                    chunk[:, :3] = (chunk[:, :3] - tm[:3, 3]) @ tm[:3, :3]  # keyframe -> sweep frame
+                    sweeps.append({"lidar_path": path, "transform_matrix": tm, "time_lag": 0.05 * k})
+                chunk.astype(np.float32).tofile(root / path)
+            car_from_global = np.eye(4)
+            car_from_global[:2, 3] = rng.uniform(-500, 500, 2)
+            infos.append({"lidar_path": f"samples/{token}_0.bin", "token": token, "sweeps": sweeps,
+                          "ref_from_car": np.eye(4), "car_from_global": car_from_global,
+                          "timestamp": float(i), "gt_boxes": boxes.astype(np.float64), "gt_names": names})
+        with open(root / f"infos_{split_name}.pkl", "wb") as f:
+            pickle.dump(infos, f)
+        return infos
+
+    train, val = split("train"), split("val")
+    db = {}
+    for name in class_names:
+        (l, w, h), zc, _ = CLASS_SPECS[name]
+        db[name] = []
+        for j in range(DB_CROPS):
+            n = int(rng.integers(20, 200))
+            crop = np.zeros((n, 5), np.float32)
+            crop[:, :3] = rng.uniform(-0.5, 0.5, (n, 3)) * [l, w, h]
+            crop[:, 3] = rng.uniform(0, 255, n)
+            path = f"gtdb/{name}_{j}.bin"
+            crop.tofile(root / path)
+            box = np.array([*rng.uniform(-45, 45, 2), zc, l, w, h, 0.0, 0.0, rng.uniform(-math.pi, math.pi)],
+                           np.float32)
+            db[name].append({"name": name, "path": path, "box3d_lidar": box, "num_points_in_gt": n})
+    with open(root / "dbinfos.pkl", "wb") as f:
+        pickle.dump(db, f)
+    points = [sum(np.fromfile(root / p, np.float32).size // 5 for p in
+                  [info["lidar_path"], *(s["lidar_path"] for s in info["sweeps"])]) for info in train + val]
+    return {"samples": {"train": len(train), "val": len(val)}, "points_per_sample": [min(points), max(points)],
+            "gt_boxes_per_sample": [min(len(i["gt_names"]) for i in train + val),
+                                    max(len(i["gt_names"]) for i in train + val)],
+            "db_crops_per_class": DB_CROPS}
+
+
+def pipeline_host_ms(ds_cfg, max_points: int, batch_size: int) -> dict:
+    """Host time of the train pipeline in this process, one sample after
+    another (``dataset.get``): ms per sample in all, and the GT paste's
+    share apart (the sampler's draw with its collision tests, and the
+    deletion of points inside the pasted boxes); then ms per collated
+    batch, and the pickling and unpickling a worker's queue does to one
+    (its size beside them)."""
+    import pickle
+    from multiprocessing.reduction import ForkingPickler
+
+    import numpy as np
+
+    from pillarnext_tpu_torch.core import box_ops, native_geometry
+    from pillarnext_tpu_torch.data.collate import collate
+    from pillarnext_tpu_torch.utils.builders import build_dataset
+
+    ds = build_dataset(ds_cfg)
+    native_geometry.library()  # built before the clock starts
+    paste = [0.0]
+
+    def timed(fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                paste[0] += time.perf_counter() - t0
+        return run
+
+    sample_all, points_in_rbbox = ds.sampler.sample_all, box_ops.points_in_rbbox
+    ds.sampler.sample_all, box_ops.points_in_rbbox = timed(sample_all), timed(points_in_rbbox)
+    try:
+        t0 = time.perf_counter()
+        samples = [ds.get(i, np.random.RandomState(i)) for i in range(len(ds))]
+        total = time.perf_counter() - t0
+    finally:
+        ds.sampler.sample_all, box_ops.points_in_rbbox = sample_all, points_in_rbbox
+    t0 = time.perf_counter()
+    batches = [collate(samples[i:i + batch_size], max_points, np.random.default_rng(i))
+               for i in range(0, len(samples) - batch_size + 1, batch_size)]
+    collate_s = time.perf_counter() - t0
+    # what a worker's queue does to a batch on its way to the trainer
+    t0 = time.perf_counter()
+    payloads = [ForkingPickler.dumps(b) for b in batches]
+    pickle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for payload in payloads:
+        pickle.loads(payload)
+    unpickle_s = time.perf_counter() - t0
+    n = max(len(batches), 1)
+    return {"samples": len(samples), "ms_per_sample": total / len(samples) * 1e3,
+            "gt_paste_ms_per_sample": paste[0] / len(samples) * 1e3,
+            "points_per_sample_after_paste": [int(min(len(s["points"]) for s in samples)),
+                                              int(max(len(s["points"]) for s in samples))],
+            "collate_ms_per_batch": collate_s / n * 1e3, "pickled_mb_per_batch": sum(map(len, payloads)) / n / 2**20,
+            "pickle_ms_per_batch": pickle_s / n * 1e3, "unpickle_ms_per_batch": unpickle_s / n * 1e3}
+
+
+@contextlib.contextmanager
+def cli_instruments(counters):
+    """Inside the block, every ``Trainer.train_step`` is fenced by CUDA
+    synchronisations and timed into ``out["step_ms"]``, and every
+    ``Trainer.val_epoch`` records the launch counts at its start and end and
+    its result into ``out["val"]``."""
+    from pillarnext_tpu_torch.train.trainer import Trainer
+
+    out = {"step_ms": [], "val": []}
+    train_step, val_epoch = Trainer.train_step, Trainer.val_epoch
+
+    def timed_step(self, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = train_step(self, batch)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        return result
+
+    def counted_val(self):
+        before = {k.__name__: k.launches for k in counters}
+        result = val_epoch(self)
+        out["val"].append({"before": before, "after": {k.__name__: k.launches for k in counters},
+                           "result": result})
+        return result
+
+    Trainer.train_step, Trainer.val_epoch = timed_step, counted_val
+    try:
+        yield out
+    finally:
+        Trainer.train_step, Trainer.val_epoch = train_step, val_epoch
+
+
+def cli_paths(device) -> tuple[dict, dict]:
+    """The port's CLIs in this process on a nuScenes-format tree written
+    here (``write_nuscenes_tree``): ``cli.train`` on the flagship as its
+    YAML gives it (1344^2, B = 4, 300000 points, bf16, its GT paste and
+    augmentations) for one epoch of 2 steps, with the epoch's ``val_epoch``
+    over the 8 val samples and the scorer; then ``cli.test`` of the
+    checkpoint.  The overrides only point the config at the tree, train one
+    epoch without CBGS and set the workers to ``min(16, cores)``.  Fails
+    unless kernels 2 and 3 launched in training, 1 and 2 in ``val_epoch``
+    and in ``cli.test``, the scorer wrote one entry per val sample, every
+    loss is finite and ``cli.test``'s detections are the bits of
+    ``cli.train``'s.  Returns the launches of each CLI run."""
+    import os
+
+    import numpy as np
+
+    from pillarnext_tpu_torch.cli import test as cli_test
+    from pillarnext_tpu_torch.cli import train as cli_train
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    cfg = load_experiment(FLAGSHIP)
+    class_names = [n for task in cfg["data"]["train_dataset"]["class_names"] for n in task]
+    counters = kernel_counters()
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        root, tmp = Path(tmp) / "nuscenes", Path(tmp)
+        t0 = time.perf_counter()
+        tree = write_nuscenes_tree(root, cfg["model"]["reader"]["pc_range"], class_names, seed=0)
+        tree["host_seconds"] = time.perf_counter() - t0
+        workers = min(16, os.cpu_count() or 1)
+        overrides = [f"data.train_dataset.root_path={root}", "data.train_dataset.info_path=infos_train.pkl",
+                     "data.val_dataset.info_path=infos_val.pkl",
+                     "data.train_dataset.sampler.dbinfo_path=dbinfos.pkl", "trainer.max_epochs=1",
+                     "data.train_dataset.resampling=false", f"dataloader.train.num_workers={workers}",
+                     f"dataloader.val.num_workers={workers}"]
+        run_cfg = load_experiment(FLAGSHIP, overrides)
+        dl = run_cfg["dataloader"]
+        host = pipeline_host_ms(run_cfg["data"]["train_dataset"], int(dl["max_points"]),
+                                int(dl["train"]["batch_size"]))
+        common = ["--config", str(FLAGSHIP), "--device", str(device)]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        # the CLIs' progress bars go to stderr: stdout holds the JSON lines
+        with cli_instruments(counters) as inst, contextlib.redirect_stdout(sys.stderr):
+            trained = cli_train.main([*common, "--work-dir", str(tmp / "work"), *overrides])
+        train_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in counters}
+        val, = inst["val"]
+        in_training, in_val = val["before"], {k: val["after"][k] - val["before"][k] for k in val["after"]}
+        losses = [float(v) for v in trained.epoch_losses]
+        results = json.loads((tmp / "work/results/epoch_1/results_nusc.json").read_text())["results"]
+        timing = trained.val_timing
+        rec = {"phase": "main_path", "path": "cli_train", "dtype": run_cfg["model"].get("dtype", "bfloat16"),
+               "data": tree, "num_workers": workers, "batch_size": int(dl["train"]["batch_size"]),
+               "max_points": int(dl["max_points"]), "steps": len(inst["step_ms"]), "step_ms": inst["step_ms"],
+               "loader_wait_ms": [w * 1e3 for w in trained.loader_wait_s],
+               "loader_start_ms": trained.train_dataloader.start_s * 1e3,
+               "loader_batch_ms_in_worker": [t * 1e3 for t in trained.train_dataloader.load_s], "losses": losses,
+               "host_pipeline": host, "val_batches": len(timing["batch_s"]),
+               "val_ms_per_batch": [b * 1e3 for b in timing["batch_s"]],
+               "val_loader_wait_ms": [w * 1e3 for w in timing["loader_wait_s"]],
+               "val_loader_start_ms": trained.val_dataloader.start_s * 1e3,
+               "val_loader_batch_ms_in_worker": [t * 1e3 for t in trained.val_dataloader.load_s],
+               "eval_repairs": trained.eval_repairs, "scorer_seconds": timing["scorer_s"],
+               "results_nusc_entries": len(results), "mean_ap": val["result"]["mean_ap"],
+               "nd_score": val["result"]["nd_score"], "cli_seconds": train_s,
+               "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
+               "launches": launches, "launches_in_training": in_training, "launches_in_val_epoch": in_val}
+        emit(rec)
+        failures = []
+        if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+            failures.append(f"losses {losses}")
+        failures += [f"{name} never launched in training" for name in KERNELS[1:] if not in_training[name]]
+        failures += [f"{name} never launched in val_epoch" for name in KERNELS[:2] if not in_val[name]]
+        if len(results) != CLI_SAMPLES:
+            failures.append(f"results_nusc.json holds {len(results)} entries, expected {CLI_SAMPLES}")
+        if not (math.isfinite(rec["mean_ap"]) and math.isfinite(rec["nd_score"])):
+            failures.append("mean_ap / nd_score not finite")
+        if not all(np.isfinite(d[k]).all() and d["box3d_lidar"].shape == (len(d["scores"]), 9)
+                   for d in trained.last_detections.values() for k in ("box3d_lidar", "scores")):
+            failures.append("detections not finite or not (D, 9) boxes")
+        if failures:
+            raise AssertionError(f"cli_train: {failures}")
+
+        for k in counters:
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            tested = cli_test.main([*common, "--checkpoint", str(tmp / "work/checkpoints/epoch_1.pt"),
+                                    "--work-dir", str(tmp / "work_test"), *overrides])
+        test_s = time.perf_counter() - t0
+        test_launches = {k.__name__: k.launches for k in counters}
+        ref, got = trained.last_detections, tested.last_detections
+        differing = sorted(t for t in ref if t not in got or any(
+            not np.array_equal(ref[t][k], got[t][k]) for k in ref[t]))
+        timing = tested.val_timing
+        emit({"phase": "main_path", "path": "cli_test", "cli_seconds": test_s,
+              "val_batches": len(timing["batch_s"]), "val_ms_per_batch": [b * 1e3 for b in timing["batch_s"]],
+              "val_loader_wait_ms": [w * 1e3 for w in timing["loader_wait_s"]],
+              "val_loader_start_ms": tested.val_dataloader.start_s * 1e3,
+              "val_loader_batch_ms_in_worker": [t * 1e3 for t in tested.val_dataloader.load_s],
+              "eval_repairs": tested.eval_repairs, "scorer_seconds": timing["scorer_s"],
+              "detections": sum(len(d["scores"]) for d in got.values()),
+              "detections_bit_identical_to_cli_train": not differing and got.keys() == ref.keys(),
+              "differing_tokens": differing, "launches": test_launches})
+        failures = [f"{name} never launched" for name in KERNELS[:2] if not test_launches[name]]
+        if differing or got.keys() != ref.keys():
+            failures.append(f"detections differ from cli_train's for {differing or 'the token set'}")
+        if failures:
+            raise AssertionError(f"cli_test: {failures}")
+        del trained, tested
+    torch.cuda.empty_cache()
+    return launches, test_launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; a CUDA GPU is required")
@@ -1182,6 +1486,10 @@ def main() -> None:
     del first_batch, pp18
     torch.cuda.empty_cache()
 
+    # phase 8c: the CLIs, cli.train (2 steps, val_epoch, scorer) then
+    # cli.test, on a nuScenes-format tree of 300k-point 10-sweep frames
+    cli_train_launches, cli_test_launches = cli_paths(device)
+
     # phase 9: each kernel vs its plain version at the main paths' shapes (after
     # the main paths, so that torch.profiler has not traced the process they run in)
     gen = torch.Generator().manual_seed(0)
@@ -1252,7 +1560,8 @@ def main() -> None:
 
     paths = {"serving": serve_launches, "serving_voxel18": voxel_launches,
              **{path: w["launches"] for path, w in waymo.items()},
-             "train": train_launches, "train_voxel18": vtrain_launches, **wtrain}
+             "train": train_launches, "train_voxel18": vtrain_launches, **wtrain,
+             "cli_train": cli_train_launches, "cli_test": cli_test_launches}
     by_path = {k: {p: n[k] for p, n in paths.items()} for k in KERNELS}
     cases = records["gather_cases"]
     kernels_line = [

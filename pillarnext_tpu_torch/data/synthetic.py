@@ -2,8 +2,8 @@
 
 Labelled scenes from utils/synth.synth_detection_scene, targets from the
 experiment's own ``prepare_label.centermap`` (data/assign.AssignLabel),
-collated to the dataloader's static ``max_points``.  The port trains on
-these until the nuScenes pipeline is ported (ROADMAP).
+collated to the dataloader's static ``max_points``: batches for tests and
+measurements that need no dataset (the datasets are data/datasets.py).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
-"""Config -> the port's model and optimizer.
+"""Config -> the port's model, datasets and optimizer.
 
-Counterpart of ``build_model`` / ``build_optimizer``
-(pillarnext_tpu/utils/builders.py:38-94, :125-141).  The card comes first:
+Counterpart of ``build_model`` / ``build_eval_model_scaled`` /
+``build_dataset`` / ``build_optimizer`` (pillarnext_tpu/utils/builders.py:38-141).  The card comes first:
 both build on ``cuda:0`` unless the caller passes ``device="cpu"``, and
 without a card that default raises instead of falling back to the CPU.
 """
@@ -94,6 +94,33 @@ def build_model(model_cfg: dict, device="cuda:0", generator: torch.Generator | N
     if generator is not None:
         init_random(model, generator)
     return model.to(device).train(train)
+
+
+def build_eval_model_scaled(model_cfg: dict, scale: float, device="cuda:0"):
+    """The eval model with every reader table capacity (pillar, voxel,
+    cylinder) multiplied by ``scale`` and rounded up to a 4096 quantum
+    (builders.py:97-118).  Parameter shapes do not depend on capacity, so
+    it takes the same weights: ``Trainer.val_epoch`` recomputes a batch
+    whose active set overflowed the configured capacity on it, which gives
+    the detections a model built with that capacity from the start would
+    give.  (JAX's branch that opens a tile capacity has no counterpart:
+    the port builds no tile backbone.)  No parameters are drawn: load the
+    weights afterwards."""
+    cfg = copy.deepcopy(model_cfg)
+    rd = cfg.get("reader")
+    if isinstance(rd, dict):
+        for key in ("pillar_capacity", "voxel_capacity", "cylinder_capacity"):
+            if key in rd:
+                rd[key] = int(-(-int(rd[key]) * scale // 4096)) * 4096
+    return build_model(cfg, device=device)
+
+
+def build_dataset(ds_cfg: dict):
+    """A dataset from ``cfg["data"]["train_dataset"]`` or ``["val_dataset"]``;
+    the GT-paste sampler arrives as the factory its ``_partial_: True``
+    asks for, which the dataset calls."""
+    check_targets(ds_cfg)
+    return instantiate(ds_cfg, registry=PORT_REGISTRY)
 
 
 def build_optimizer(cfg: dict, steps_per_epoch: int, params):

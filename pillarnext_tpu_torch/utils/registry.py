@@ -2,9 +2,10 @@
 
 Counterpart of pillarnext_tpu/utils/registry.py:27-74.  ``PORT_REGISTRY``
 maps the target names of the YAML tree (``pillarnext_tpu.*``, and the
-reference's ``det3d.*`` aliases) to the port's classes, and every target
-not ported yet to a builder that raises ``NotImplementedError``.  The
-port's ``utils/config.instantiate`` resolves targets only here.
+reference's ``det3d.*`` aliases) to the port's classes: the models and
+every data target (datasets, GT-paste sampler, augmentations, target
+assignment).  The port's ``utils/config.instantiate`` resolves targets
+only here; ``check_targets`` raises for any other.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 from typing import Callable
 
 from pillarnext_tpu_torch import models
-from pillarnext_tpu_torch.data.assign import AssignLabel
+from pillarnext_tpu_torch.data import assign, augmentation, datasets, sampler
 
 _PORTED = {
     "pillarnext_tpu.models.SingleStageDetector": models.SingleStageDetector,
@@ -23,18 +24,16 @@ _PORTED = {
     "pillarnext_tpu.models.SparseResNet3D": models.SparseResNet3D,
     "pillarnext_tpu.models.ASPPNeck": models.ASPPNeck,
     "pillarnext_tpu.models.CenterHead": models.CenterHead,
-    "pillarnext_tpu.data.AssignLabel": AssignLabel,
+    "pillarnext_tpu.data.AssignLabel": assign.AssignLabel,
+    "pillarnext_tpu.data.NuScenesDataset": datasets.NuScenesDataset,
+    "pillarnext_tpu.data.WaymoDataset": datasets.WaymoDataset,
+    "pillarnext_tpu.data.DataBaseSampler": sampler.DataBaseSampler,
+    "pillarnext_tpu.data.DBFilterByMinNumPoint": sampler.DBFilterByMinNumPoint,
+    "pillarnext_tpu.data.Flip": augmentation.Flip,
+    "pillarnext_tpu.data.Scaling": augmentation.Scaling,
+    "pillarnext_tpu.data.Rotation": augmentation.Rotation,
+    "pillarnext_tpu.data.Translation": augmentation.Translation,
 }
-_NOT_PORTED = (
-    "pillarnext_tpu.data.NuScenesDataset",
-    "pillarnext_tpu.data.WaymoDataset",
-    "pillarnext_tpu.data.DataBaseSampler",
-    "pillarnext_tpu.data.DBFilterByMinNumPoint",
-    "pillarnext_tpu.data.Flip",
-    "pillarnext_tpu.data.Scaling",
-    "pillarnext_tpu.data.Rotation",
-    "pillarnext_tpu.data.Translation",
-)
 _ALIASES = {
     "det3d.models.detectors.single_stage.SingleStageDetector": "pillarnext_tpu.models.SingleStageDetector",
     "det3d.models.readers.pillar_encoder.PillarFeatureNet": "pillarnext_tpu.models.PillarFeatureNet",
@@ -56,16 +55,8 @@ _ALIASES = {
 }
 
 
-def _not_ported(name: str) -> Callable:
-    def build(**_kwargs):
-        raise NotImplementedError(f"{name} is not ported yet, see ROADMAP")
-
-    return build
-
-
 def _registry() -> dict[str, Callable]:
     reg: dict[str, Callable] = dict(_PORTED)
-    reg.update({name: _not_ported(name) for name in _NOT_PORTED})
     reg.update({alias: reg[canonical] for alias, canonical in _ALIASES.items()})
     return reg
 

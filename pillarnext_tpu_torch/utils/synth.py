@@ -75,9 +75,11 @@ def synth_detection_scene(
     pc_range,
     n_objects: int = 24,
     class_names=None,
+    points_per_surface: int = 10,
 ):
     """One labelled scene: planted objects with surface-clustered points over
-    a beam-structured background.
+    a beam-structured background (``lidar_like_points`` with
+    ``points_per_surface``: more points a surface, fewer occupied pillars).
 
     Returns (points (N, 5) [x y z intensity ring], gt_boxes (M, 9)
     [x y z l w h vx vy yaw], gt_names (M,)), the info schema of the
@@ -126,7 +128,8 @@ def synth_detection_scene(
 
     obj = np.concatenate(clusters, axis=0)
     n_bg = max(n_points - len(obj), 1000)
-    bg, _ = lidar_like_points(1, n_bg, pc_range, seed=int(rng.integers(2**31)))
+    bg, _ = lidar_like_points(1, n_bg, pc_range, seed=int(rng.integers(2**31)),
+                              points_per_surface=points_per_surface)
     xyz = np.concatenate([obj, bg[0, :, :3]], axis=0)[:n_points]
     pts = np.zeros((len(xyz), 5), np.float32)
     pts[:, :3] = xyz

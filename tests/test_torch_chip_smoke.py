@@ -113,3 +113,41 @@ def test_matched_fraction_of_one_prediction_at_50_m_is_one():
     moved = dict(pred, box3d_lidar=pred["box3d_lidar"] + torch.tensor([0.02] + [0.0] * 8))
     assert chip_smoke.matched_fraction(pred, moved) == 0.0
     assert not chip_smoke.same_prediction(pred, moved)
+
+
+def test_cli_tree_reads_back_through_the_port_pipeline(tmp_path, monkeypatch):
+    """The nuScenes-format tree of the CLI phases, at 2,000 points a sweep:
+    each sample's 10 sweeps come back in the keyframe's frame (the sweeps'
+    transforms undo the ego motion they were written under), the val infos
+    carry their GT, and the train pipeline (GT paste, augmentations,
+    targets) runs on it."""
+    import numpy as np
+
+    from pillarnext_tpu_torch.utils.builders import build_dataset
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    monkeypatch.setattr(chip_smoke, "SWEEP_POINTS", 2000)
+    cfg = load_experiment(chip_smoke.FLAGSHIP)
+    names = [n for task in cfg["data"]["train_dataset"]["class_names"] for n in task]
+    tree = chip_smoke.write_nuscenes_tree(tmp_path / "nusc", cfg["model"]["reader"]["pc_range"], names, seed=0)
+    assert tree["samples"] == {"train": 8, "val": 8} and tree["points_per_sample"] == [20000, 20000]
+    assert 20 <= tree["gt_boxes_per_sample"][0] <= tree["gt_boxes_per_sample"][1] <= 40
+
+    overrides = [f"data.train_dataset.root_path={tmp_path / 'nusc'}", "data.train_dataset.info_path=infos_train.pkl",
+                 "data.val_dataset.info_path=infos_val.pkl", "data.train_dataset.sampler.dbinfo_path=dbinfos.pkl",
+                 "data.train_dataset.resampling=false"]
+    cfg = load_experiment(chip_smoke.FLAGSHIP, overrides)
+    val = build_dataset(cfg["data"]["val_dataset"])
+    sample = val.get(0, np.random.RandomState(0))
+    pts, info = sample["points"], val.infos[0]
+    assert 19000 < len(pts) <= 20000
+    np.testing.assert_allclose(np.unique(pts[:, 4]), 0.05 * np.arange(10), atol=1e-6)
+    # the last sweep (written 4.5 m back) lands on the keyframe's surfaces:
+    # its points' median distance to the nearest keyframe point is ~cm
+    key, sweep = pts[pts[:, 4] == 0, :2], pts[np.isclose(pts[:, 4], 0.45), :2]
+    near = np.sqrt(((sweep[:200, None] - key[None]) ** 2).sum(-1)).min(1)
+    assert np.median(near) < 0.25
+    assert len(info["gt_boxes"]) == len(info["gt_names"]) >= 20
+
+    host = chip_smoke.pipeline_host_ms(cfg["data"]["train_dataset"], 30000, 4)
+    assert host["samples"] == 8 and 0 < host["gt_paste_ms_per_sample"] < host["ms_per_sample"]

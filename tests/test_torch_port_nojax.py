@@ -9,7 +9,8 @@ step, and then requires that no module named ``jax*``, ``flax*``,
 interpreters do the same for a predict of the small voxel18 model and for
 a voxel18 train step through the Trainer, one for a predict of the
 small MVF model (waymo_det_mvf18_aspp_iou_car) and one for an MVF train
-step through the Trainer.
+step through the Trainer; a last one imports the CLIs and the data
+package and asks both CLIs for ``--help``.
 """
 
 from __future__ import annotations
@@ -310,3 +311,45 @@ def test_build_model_and_trainer_default_to_the_card():
     opt, _ = build_optimizer(cfg, 1, list(model.parameters()))
     with pytest.raises(RuntimeError, match="cuda"):
         Trainer(model, [], opt)
+
+
+CLI_SCRIPT = r"""
+import contextlib, io, json, sys, time
+t0 = time.perf_counter()
+import pillarnext_tpu_torch.cli.test
+import pillarnext_tpu_torch.cli.train
+import pillarnext_tpu_torch.data
+
+helps = []
+for main in (pillarnext_tpu_torch.cli.train.main, pillarnext_tpu_torch.cli.test.main):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            main(["--help"])
+        except SystemExit as e:
+            code = e.code
+    helps.append([code, out.getvalue()])
+
+def foreign(name):
+    top = name.split(".")[0]
+    return top.startswith("jax") or top.startswith("flax") or top == "pillarnext_tpu"
+
+print(json.dumps({"helps": helps, "seconds": time.perf_counter() - t0,
+                  "loaded": sorted(m for m in sys.modules if foreign(m))}))
+"""
+
+
+def test_port_cli_imports_no_jax():
+    """The CLIs and the data package import, and answer ``--help``, in a
+    fresh interpreter without loading JAX or the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", CLI_SCRIPT], capture_output=True, text=True, env=env,
+                          cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    (train_code, train_help), (test_code, test_help) = result["helps"]
+    assert train_code == test_code == 0
+    assert "--load-from" in train_help and "--device" in train_help
+    assert "--checkpoint" in test_help and "--device" in test_help
+    assert result["loaded"] == []
+    assert result["seconds"] < 15

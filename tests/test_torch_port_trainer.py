@@ -72,10 +72,29 @@ def test_undersized_stage_capacity_raises_overflow(tmp_path):
 
 
 def test_trainer_rejects_what_is_not_ported(tmp_path):
+    """val_epoch is ported: it predicts each val batch and hands the valid
+    detections by token to the loader's dataset, leaving the train-mode
+    model in train mode.  accum_steps > 1 and the tile backbone are not."""
     cfg = load_experiment(FLAGSHIP, OVERRIDES)
     trainer = _trainer(cfg, [], tmp_path)
-    with pytest.raises(NotImplementedError):
-        trainer.val_epoch()
+    batch = synthetic_batches(cfg, 1, 2, 3000, seed=3, n_objects=4, max_points=4000)[0]
+
+    class Val(list):
+        dataset = None
+
+        def evaluation(self, results, output_dir):
+            self.results = results
+            return {"scored": sorted(results)}
+
+    trainer.val_dataloader = Val([{"token": ["a", "b"], "points": batch["points"],
+                                   "points_mask": batch["points_mask"]}])
+    trainer.val_dataloader.dataset = trainer.val_dataloader
+    assert trainer.val_epoch() == {"scored": ["a", "b"]}
+    assert trainer.model.training
+    for dets in trainer.val_dataloader.results.values():
+        assert dets.keys() == {"box3d_lidar", "scores", "label_preds"}
+        assert dets["box3d_lidar"].shape == (len(dets["scores"]), 9) == (len(dets["label_preds"]), 9)
+    assert (tmp_path / "results" / "epoch_0").is_dir()
     with pytest.raises(NotImplementedError):
         Trainer(trainer.model, [], trainer.optimizer, accum_steps=2, device="cpu")
     with pytest.raises(NotImplementedError):
