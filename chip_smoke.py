@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``pillarnext_tpu_torch/csrc`` (one
+(``chip_smoke.py ddp-worker DIR`` and ``cli-ddp-worker DIR ARGV...`` are
+its own ranks.)  Builds the port's CUDA kernels from ``pillarnext_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once), drives the port's main paths at full
 width, random weights from a seed:
 
@@ -41,6 +42,17 @@ width, random weights from a seed:
   checkpoint; step and loader-wait ms, host ms per sample (GT paste
   apart), val ms per batch, repairs and scorer seconds; ``cli.test``'s
   detections must be the bits of ``cli.train``'s;
+- cli_train_ddp: ``cli.train`` under torchrun on 2 ranks over gloo on the
+  one card, one epoch with its evaluation on the same tree: each rank
+  takes half the steps, one checkpoint, rank 0 scores every val token
+  once;
+- ddp_train: the port's data-parallel step (``parallel``: synced
+  BatchNorm, global loss normalisers, one gradient all-reduce) on 2 ranks
+  over gloo sharing the card, in processes of their own: an f32 step of
+  the flagship at B = 2 a rank held against the 1-process B = 4 step with
+  JAX's multi-device bars, then 3 timed bf16 steps a rank (step ms, the
+  all-reduce's bytes and ms, peak memory a rank, launches);
+- ddp_nccl: one rank over NCCL, three bf16 steps through the same code;
 
 then holds each kernel against its plain PyTorch version at the shapes
 those paths give it.  Kernel 3 (``sorted_segment_bcast``) also carries
@@ -61,7 +73,10 @@ time of ``pillar_max_broadcast`` forward and backward with kernel 3's
 share of it.
 
 Each path runs with the launch counters set to 0 just before it and read
-just after, and fails unless every kernel of that path launched.  Every
+just after (in each rank's process for the multi-process paths, summed
+over the ranks), and fails unless every kernel of that path launched.
+Every process the script starts is killed at ``DDP_TIMEOUT_S`` (a hung
+collective fails the run).  Every
 phase prints one JSON line; before the last line come the card's name and
 power limit and the ``kernels`` line; the last line is ``{"ok": true,
 "device": {...}}``.  Any mismatch raises and the script exits non-zero;
@@ -92,11 +107,13 @@ KERNELS = ("pfn_two_layer", "monotone_row_gather", "sorted_segment_bcast")
 N_POINTS = 200_000
 TIMED_RUNS = 25
 PROFILED_CALLS = 20
-PROFILE_WINDOWS = 4
+PROFILE_WINDOWS = 8  # torch.profiler at times loses a whole window's records
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel, launched between profiled calls
 LATENCY_FRAMES = 10
 TRAIN_STEPS = 5
 CLI_SAMPLES = 8  # train and val samples of the CLIs' nuScenes tree
+DDP_BF16_STEPS = 3
+DDP_TIMEOUT_S = 300  # each rank's process group and each multi-process phase
 SWEEPS = 10
 SWEEP_POINTS = 30_000
 POINTS_PER_SURFACE = 40  # the CLIs' scenes: ~55k occupied pillars a 300k-point frame
@@ -1197,7 +1214,36 @@ def cli_instruments(counters):
         Trainer.train_step, Trainer.val_epoch = train_step, val_epoch
 
 
-def cli_paths(device) -> tuple[dict, dict]:
+def cli_ddp_worker(out_dir: str, argv: list) -> None:
+    """One rank of ``cli_train_ddp`` (run by torchrun as ``chip_smoke.py
+    cli-ddp-worker DIR ARGV...``): ``cli.train.main(argv)`` with the
+    kernels' launches counted from the start; writes ``rank{r}.json`` with
+    its steps, the tokens of its val detections (rank 0: the union it
+    scored), whether its val epoch returned a result, its step and val
+    times and the launches."""
+    sys.path.insert(0, str(REPO))
+    from pillarnext_tpu_torch import parallel
+    from pillarnext_tpu_torch.cli import train as cli_train
+
+    counters = kernel_counters()
+    for k in counters:
+        k.launches = 0
+    with cli_instruments(counters) as inst, contextlib.redirect_stdout(sys.stderr):
+        trained = cli_train.main(argv)
+    val, = inst["val"]
+    rec = {"rank": parallel.rank(), "world_size": parallel.world_size(), "device": str(trained.device),
+           "step": trained.step, "epoch": trained.epoch, "steps_per_epoch": len(trained.train_dataloader),
+           "step_ms": inst["step_ms"], "losses": [float(v) for v in trained.epoch_losses],
+           "val_tokens": sorted(trained.last_detections), "scored": val["result"] is not None,
+           "val_ms_per_batch": [b * 1e3 for b in trained.val_timing["batch_s"]],
+           "scorer_seconds": trained.val_timing["scorer_s"],
+           "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
+           "launches": {k.__name__: k.launches for k in counters}}
+    (Path(out_dir) / f"rank{rec['rank']}.json").write_text(json.dumps(rec))
+    parallel.shutdown()
+
+
+def cli_paths(device) -> tuple[dict, dict, dict]:
     """The port's CLIs in this process on a nuScenes-format tree written
     here (``write_nuscenes_tree``): ``cli.train`` on the flagship as its
     YAML gives it (1344^2, B = 4, 300000 points, bf16, its GT paste and
@@ -1208,7 +1254,13 @@ def cli_paths(device) -> tuple[dict, dict]:
     unless kernels 2 and 3 launched in training, 1 and 2 in ``val_epoch``
     and in ``cli.test``, the scorer wrote one entry per val sample, every
     loss is finite and ``cli.test``'s detections are the bits of
-    ``cli.train``'s.  Returns the launches of each CLI run."""
+    ``cli.train``'s.  Then ``cli_train_ddp``: torchrun starts
+    ``cli.train`` on 2 ranks over gloo on the one card
+    (``cli_ddp_worker``), one epoch and its evaluation on the same tree;
+    each rank must take half of ``cli.train``'s steps, one checkpoint must
+    be written, and rank 0 must score every val token exactly once.
+    Returns the launches of each CLI run (``cli_train_ddp``: summed over
+    its ranks)."""
     import os
 
     import numpy as np
@@ -1310,9 +1362,275 @@ def cli_paths(device) -> tuple[dict, dict]:
             failures.append(f"detections differ from cli_train's for {differing or 'the token set'}")
         if failures:
             raise AssertionError(f"cli_test: {failures}")
+        ddp_launches = cli_train_ddp(tmp, common, overrides, trained, train_s)
         del trained, tested
     torch.cuda.empty_cache()
-    return launches, test_launches
+    return launches, test_launches, ddp_launches
+
+
+def cli_train_ddp(tmp: Path, common: list, overrides: list, trained, train_s: float) -> dict:
+    """``cli_train_ddp`` of ``cli_paths``: the summed launches of its
+    ranks."""
+    out_dir, work = tmp / "ddp_ranks", tmp / "work_ddp"
+    out_dir.mkdir()
+    argv = [*common[:2], "--device", "cuda:0", "--dist-backend", "gloo", "--work-dir", str(work), *overrides]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=2",
+           str(Path(__file__).resolve()), "cli-ddp-worker", str(out_dir), *argv]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with open(out_dir / "torchrun.log", "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    wait_ranks([proc], [out_dir / "torchrun.log"], DDP_TIMEOUT_S, "cli_train_ddp")
+    wall_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
+    summed = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    val_tokens = sorted(trained.last_detections)
+    checkpoints = sorted(str(p.relative_to(work)) for p in work.rglob("*.pt"))
+    results = json.loads((work / "results/epoch_1/results_nusc.json").read_text())["results"]
+    emit({"phase": "main_path", "path": "cli_train_ddp", "ranks": 2, "backend": "gloo",
+          "cards": torch.cuda.device_count(), "cli_seconds": wall_s, "cli_train_seconds": train_s,
+          "per_rank": ranks, "checkpoints": checkpoints, "results_nusc_entries": len(results),
+          "launches": summed})
+    failures = []
+    if any(r["step"] * 2 != trained.step for r in ranks):
+        failures.append(f"steps per rank {[r['step'] for r in ranks]}, one process took {trained.step}")
+    if checkpoints != ["checkpoints/epoch_1.pt"]:
+        failures.append(f"checkpoints written: {checkpoints}")
+    if ranks[0]["val_tokens"] != val_tokens or sorted(results) != val_tokens or not ranks[0]["scored"]:
+        failures.append(f"rank 0 scored {len(ranks[0]['val_tokens'])} tokens ({len(results)} in its file), "
+                        f"expected the {len(val_tokens)} val tokens")
+    if ranks[1]["scored"] or len(ranks[1]["val_tokens"]) != len(val_tokens) // 2 \
+            or not set(ranks[1]["val_tokens"]) <= set(val_tokens):
+        failures.append(f"rank 1 scored, or its val shard is not half the val tokens: {ranks[1]['val_tokens']}")
+    failures += [f"{k} never launched" for k in KERNELS if not summed[k]]
+    if not all(math.isfinite(v) for r in ranks for v in r["losses"]):
+        failures.append("losses not finite")
+    if failures:
+        raise AssertionError(f"cli_train_ddp: {failures}")
+    return summed
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(mode: str, spec_dir: Path, world: int) -> list:
+    """``world`` processes of this script in ``mode`` on ``spec_dir``, with
+    the environment torchrun would give them (one free local port)."""
+    import os
+
+    port = free_port()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        with open(spec_dir / f"rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), mode, str(spec_dir)],
+                                          env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def wait_ranks(procs: list, logs: list, timeout_s: float, what: str) -> None:
+    """Wait for every process; once one fails, or at ``timeout_s`` (a hung
+    collective), kill the rest.  Raise with the logs' tails unless each
+    exited 0."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        codes = [p.poll() for p in procs]
+        if None not in codes or any(c not in (None, 0) for c in codes):
+            break
+        time.sleep(0.2)
+    hung = [p.pid for p in procs if p.poll() is None]
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    if hung or any(p.returncode for p in procs):
+        tails = "\n".join(Path(f).read_text()[-4000:] for f in logs if Path(f).exists())
+        raise AssertionError(f"{what}: {'hung and killed' if hung else 'failed'}, exit codes "
+                             f"{[p.returncode for p in procs]}\n{tails}")
+
+
+def ddp_worker(spec_dir: str) -> None:
+    """One rank of ``ddp_paths`` (run as ``chip_smoke.py ddp-worker DIR``):
+    joins the group of its environment, then, with the spec's
+    ``f32_reference``, one f32 step of the seed-0 flagship on its share of
+    the first batch, and ``bf16_steps`` timed bf16 steps on its shares of
+    the next batches, every step through ``train_state.train_step``;
+    writes ``rank{r}.pt``: the f32 step's loss, gradient norm and state,
+    the step times, each gradient all-reduce's bytes and ms (CUDA
+    synchronised), every all-reduce of a step (the gradients', each synced
+    BatchNorm's forward and backward, the loss normalisers) with the host
+    time spent in them, peak memory and the kernels' launches."""
+    sys.path.insert(0, str(REPO))
+    from pillarnext_tpu_torch import parallel
+    from pillarnext_tpu_torch.train.train_state import split_batch, train_step
+    from pillarnext_tpu_torch.train.trainer import batch_to_device
+    from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
+
+    spec_dir = Path(spec_dir)
+    spec = torch.load(spec_dir / "spec.pt", weights_only=False)
+    device = parallel.init_from_env(spec["backend"], spec["device"], timeout_s=DDP_TIMEOUT_S)
+    rank, world = parallel.rank(), parallel.world_size()
+    cfg, batches = spec["cfg"], spec["batches"]
+    grad_reduces, reduces = [], {"calls": 0, "host_ms": 0.0}
+    flat_reduce, all_reduce = parallel.all_reduce_, torch.distributed.all_reduce
+
+    def timed_flat(tensors, op=torch.distributed.ReduceOp.SUM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flat_reduce(tensors, op)
+        torch.cuda.synchronize()
+        grad_reduces.append({"bytes": 4 * sum(t.numel() for t in tensors),
+                             "ms": (time.perf_counter() - t0) * 1e3})
+
+    def counted(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return all_reduce(*args, **kwargs)
+        finally:
+            reduces["calls"] += 1
+            reduces["host_ms"] += (time.perf_counter() - t0) * 1e3
+
+    parallel.all_reduce_, torch.distributed.all_reduce = timed_flat, counted
+    counters = kernel_counters()
+    for k in counters:
+        k.launches = 0
+    out = {"rank": rank, "world_size": world, "backend": spec["backend"], "device": str(device)}
+
+    def step(model, opt, batch):
+        local = batch_to_device(split_batch(batch, world)[rank], device)
+        parallel.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scalars, _ = train_step(model, opt, local)
+        torch.cuda.synchronize()
+        return scalars, (time.perf_counter() - t0) * 1e3
+
+    if spec["f32_reference"]:
+        model = build_model(dict(cfg["model"], dtype="float32"), device=device,
+                            generator=torch.Generator().manual_seed(0), train=True)
+        opt, _ = build_optimizer(cfg, 10, list(model.parameters()))
+        scalars, _ = step(model, opt, batches[0])
+        out["f32"] = {"loss": float(scalars["loss"]), "grad_norm": float(scalars["grad_norm"]),
+                      "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+        del model, opt, scalars
+        torch.cuda.empty_cache()
+    model = build_model(cfg["model"], device=device, generator=torch.Generator().manual_seed(0), train=True)
+    opt, _ = build_optimizer(cfg, 10, list(model.parameters()))
+    torch.cuda.reset_peak_memory_stats()
+    bf16 = []
+    for b in batches[1:1 + spec["bf16_steps"]]:
+        before = dict(reduces)
+        bf16.append((*step(model, opt, b), {k: reduces[k] - before[k] for k in reduces}))
+    out.update(
+        step_ms=[ms for _, ms, _ in bf16], losses=[float(sc["loss"]) for sc, _, _ in bf16],
+        grad_all_reduces=grad_reduces, all_reduces_by_step=[r for _, _, r in bf16],
+        local_batch=int(batches[0]["points"].shape[0]) // world,
+        max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 2**20,
+        launches={k.__name__: k.launches for k in counters})
+    torch.save(out, spec_dir / f"rank{rank}.pt")
+    parallel.barrier()
+    parallel.shutdown()
+
+
+def ddp_paths(cfg, batches, device) -> tuple[dict, dict]:
+    """Data-parallel training of the flagship at full width through the
+    port's ``parallel`` layer, in processes of their own:
+
+    - ``ddp_train``: two ranks on the one card over gloo (gloo all-reduces
+      CUDA tensors and lets ranks share a card; NCCL refuses two ranks on
+      one card), B = 2 a rank.  The f32 step on the 4 samples of the first
+      batch, split between the ranks, is held against this process's
+      1-process B = 4 step from the same seed-0 weights with JAX's own
+      multi-device bars (tests/test_training.py): loss 1e-5 relative,
+      gradient norm 1e-2, BN running statistics 1e-4, parameters after
+      AdamW within 2.5 lr0, the two ranks' states the same bits.  Then
+      ``DDP_BF16_STEPS`` timed bf16 steps a rank.  Two ranks on one card
+      share it: their step time is not a scaling figure;
+    - ``ddp_nccl``: one rank over NCCL, three bf16 steps at B = 4 through
+      the same code, so that NCCL's collectives run on the card.
+
+    Each fails unless every rank exits 0 within ``DDP_TIMEOUT_S`` and
+    kernels 2 and 3 launched; returns each path's launches, summed over
+    its ranks."""
+    from pillarnext_tpu_torch.train.train_state import train_step
+    from pillarnext_tpu_torch.train.trainer import batch_to_device
+    from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
+
+    model = build_model(dict(cfg["model"], dtype="float32"), device=device,
+                        generator=torch.Generator().manual_seed(0), train=True)
+    opt, _ = build_optimizer(cfg, 10, list(model.parameters()))
+    scalars, _ = train_step(model, opt, batch_to_device(batches[0], device))
+    ref = {"loss": float(scalars["loss"]), "grad_norm": float(scalars["grad_norm"]),
+           "state": {k: v.cpu() for k, v in model.state_dict().items()}, "lr0": opt.schedule(0)}
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, opt, scalars
+    torch.cuda.empty_cache()
+
+    launches = []
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        for path, backend, rank_device, world, f32, steps in (
+            ("ddp_train", "gloo", "cuda:0", 2, True, DDP_BF16_STEPS),
+            ("ddp_nccl", "nccl", None, 1, False, 3),
+        ):
+            spec_dir = Path(tmp) / path
+            spec_dir.mkdir()
+            torch.save({"cfg": cfg, "batches": batches[:1 + steps], "backend": backend, "device": rank_device,
+                        "f32_reference": f32, "bf16_steps": steps}, spec_dir / "spec.pt")
+            t0 = time.perf_counter()
+            procs = spawn_ranks("ddp-worker", spec_dir, world)
+            wait_ranks(procs, [spec_dir / f"rank{r}.log" for r in range(world)], DDP_TIMEOUT_S, path)
+            wall_s = time.perf_counter() - t0
+            ranks = [torch.load(spec_dir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+            summed = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+            rec = {"phase": "main_path", "path": path, "backend": backend, "ranks": world,
+                   "cards": torch.cuda.device_count(), "wall_seconds": wall_s, "parameters": n_params,
+                   "per_rank": [{k: r[k] for k in ("device", "local_batch", "step_ms", "losses",
+                                                   "grad_all_reduces", "all_reduces_by_step",
+                                                   "max_memory_allocated_mb", "launches")} for r in ranks],
+                   "step_ms_median": [statistics.median(r["step_ms"]) for r in ranks],
+                   "step_ms_median_after_first": [statistics.median(r["step_ms"][1:]) for r in ranks],
+                   "grad_all_reduce_ms_median_after_first": [
+                       statistics.median(c["ms"] for c in r["grad_all_reduces"][-(steps - 1):]) for r in ranks],
+                   "grad_all_reduce_bytes": ranks[0]["grad_all_reduces"][-1]["bytes"], "launches": summed}
+            failures = [f"{k} never launched" for k in KERNELS[1:] if not summed[k]]
+            failures += [f"rank {r['rank']} losses {r['losses']}" for r in ranks
+                         if not all(math.isfinite(v) for v in r["losses"])]
+            if f32:
+                got = [r["f32"] for r in ranks]
+                lr0 = ref["lr0"]
+                stats = [k for k in ref["state"] if k.endswith(("running_mean", "running_var"))]
+                params = [k for k in ref["state"] if k not in stats]
+                bn_err = max(float(((got[0]["state"][k] - ref["state"][k]).abs()
+                                    - 1e-4 * ref["state"][k].abs()).max()) for k in stats)
+                param_err = max(float((got[0]["state"][k] - ref["state"][k]).abs().max()) for k in params)
+                rec["f32_vs_one_process"] = {
+                    "loss": [g["loss"] for g in got], "loss_one_process": ref["loss"],
+                    "loss_rel": abs(got[0]["loss"] - ref["loss"]) / abs(ref["loss"]),
+                    "grad_norm": [g["grad_norm"] for g in got], "grad_norm_one_process": ref["grad_norm"],
+                    "grad_norm_rel": abs(got[0]["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"],
+                    "bn_statistics_excess_over_1e-4": bn_err, "param_max_abs_diff": param_err,
+                    "param_bar": 2.5 * lr0,
+                    "ranks_same_bits": all(torch.equal(got[0]["state"][k], got[1]["state"][k])
+                                           for k in ref["state"]),
+                    "bars": "loss 1e-5 rel, grad norm 1e-2 rel, BN statistics 1e-4 (rel + abs), "
+                            "parameters 2.5 lr0 abs (JAX's multi-device bars)"}
+                cmp = rec["f32_vs_one_process"]
+                if cmp["loss_rel"] > 1e-5 or cmp["grad_norm_rel"] > 1e-2 or bn_err > 1e-4 \
+                        or param_err > 2.5 * lr0 or not cmp["ranks_same_bits"]:
+                    failures.append(f"2-rank f32 step against 1 process: {cmp}")
+                del got
+            emit(rec)
+            if failures:
+                raise AssertionError(f"{path}: {failures}")
+            launches.append(summed)
+            del ranks
+    return tuple(launches)
 
 
 def main() -> None:
@@ -1487,8 +1805,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # phase 8c: the CLIs, cli.train (2 steps, val_epoch, scorer) then
-    # cli.test, on a nuScenes-format tree of 300k-point 10-sweep frames
-    cli_train_launches, cli_test_launches = cli_paths(device)
+    # cli.test, on a nuScenes-format tree of 300k-point 10-sweep frames;
+    # then cli.train under torchrun on 2 ranks
+    cli_train_launches, cli_test_launches, cli_ddp_launches = cli_paths(device)
+
+    # phase 8d: data-parallel training, 2 ranks over gloo on the card (an
+    # f32 step against 1 process, then timed bf16 steps), 1 rank over NCCL
+    ddp_launches, nccl_launches = ddp_paths(cfg, batches, device)
 
     # phase 9: each kernel vs its plain version at the main paths' shapes (after
     # the main paths, so that torch.profiler has not traced the process they run in)
@@ -1561,7 +1884,8 @@ def main() -> None:
     paths = {"serving": serve_launches, "serving_voxel18": voxel_launches,
              **{path: w["launches"] for path, w in waymo.items()},
              "train": train_launches, "train_voxel18": vtrain_launches, **wtrain,
-             "cli_train": cli_train_launches, "cli_test": cli_test_launches}
+             "cli_train": cli_train_launches, "cli_test": cli_test_launches,
+             "cli_train_ddp": cli_ddp_launches, "ddp_train": ddp_launches, "ddp_nccl": nccl_launches}
     by_path = {k: {p: n[k] for p, n in paths.items()} for k in KERNELS}
     cases = records["gather_cases"]
     kernels_line = [
@@ -1592,4 +1916,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["ddp-worker"]:
+        ddp_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["cli-ddp-worker"]:
+        cli_ddp_worker(sys.argv[2], sys.argv[3:])
+    else:
+        main()

@@ -8,13 +8,20 @@ checkpoint strictly, run one val epoch and score it into
 
     python -m pillarnext_tpu_torch.cli.test --config <experiment.yaml> \\
         --checkpoint <work_dir>/checkpoints/epoch_<n>.pt \\
-        [key.path=value ...] [--work-dir DIR] [--device cuda:0|cpu]
+        [key.path=value ...] [--work-dir DIR] [--device cuda:N|cpu] \\
+        [--dist-backend nccl|gloo]
     (or: pnx-torch-test ...)
+
+Under torchrun every rank scores its shard of the val set
+(``dataloader.val.batch_size`` samples a batch, the last one possibly
+short: every sample is kept) and rank 0 scores the union of their
+detections; devices and backends as cli/train.py.
 """
 
 from __future__ import annotations
 
-from pillarnext_tpu_torch.cli.train import parser, setup_logging, single_process_device
+from pillarnext_tpu_torch import parallel
+from pillarnext_tpu_torch.cli.train import parser, setup_logging
 from pillarnext_tpu_torch.data.loader import build_dataloader
 from pillarnext_tpu_torch.train.trainer import Trainer
 from pillarnext_tpu_torch.utils import builders
@@ -25,15 +32,15 @@ def main(argv=None) -> Trainer:
     p = parser("Score a checkpoint of a PillarNeXt experiment with the PyTorch / CUDA port.")
     p.add_argument("--checkpoint", required=True)
     args = p.parse_args(argv)
-    device = single_process_device(args.device)
-    log = setup_logging()
+    device = parallel.init_from_env(args.dist_backend, args.device)
+    log = setup_logging(parallel.rank())
     cfg = load_experiment(args.config, args.overrides)
 
     val_ds = builders.build_dataset(cfg["data"]["val_dataset"])
     dl_cfg = cfg["dataloader"]
     val_loader = build_dataloader(val_ds, int(dl_cfg["val"]["batch_size"]),
                                   int(dl_cfg.get("max_points", 300000)), shuffle=False,
-                                  num_workers=int(dl_cfg["val"]["num_workers"]))
+                                  num_workers=int(dl_cfg["val"]["num_workers"]), drop_last=False)
 
     model = builders.build_model(cfg["model"], device=device)
     opt, schedule = builders.build_optimizer(cfg, 1, list(model.parameters()))
@@ -55,3 +62,4 @@ def main(argv=None) -> Trainer:
 
 if __name__ == "__main__":
     main()
+    parallel.shutdown()

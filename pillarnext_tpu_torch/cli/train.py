@@ -10,35 +10,50 @@ epochs.  Usage:
     python -m pillarnext_tpu_torch.cli.train \\
         --config pillarnext_tpu/configs/experiments/<exp>.yaml \\
         [key.path=value ...] [--work-dir DIR] [--resume-from CKPT] \\
-        [--load-from CKPT] [--profile LOGDIR] [--device cuda:0|cpu]
+        [--load-from CKPT] [--profile LOGDIR] [--device cuda:N|cpu] \\
+        [--dist-backend nccl|gloo]
     (or: pnx-torch-train ...)
 
-The model trains on one card (``--device``, default ``cuda:0``; without a
-card that raises: pass ``--device cpu`` to run on the CPU).  The train model
+    torchrun --nproc_per_node=N -m pillarnext_tpu_torch.cli.train --config ...
+
+One process trains on one card: ``--device``, default ``cuda:{LOCAL_RANK}``
+(``cuda:0`` alone); without a card that raises, pass ``--device cpu`` to
+run on the CPU.  Started by torchrun (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR`` / ``MASTER_PORT`` in the environment) the processes form
+one group over ``--dist-backend`` (``nccl`` by default, as the reference's
+tools/train.py:30-31; ``gloo`` where two ranks share a card, which NCCL
+refuses, or run on the CPU) and train data-parallel with JAX's
+global-batch semantics (parallel/): each rank loads its shard of
+``dataloader.train.batch_size x trainer.accum_steps`` samples a step (JAX's
+``global_batch // process_count``), the schedule counts the sharded steps
+per epoch, BatchNorm statistics span the global batch where the config
+sets ``sync_batchnorm``, and rank 0 logs, writes the checkpoints and scores
+the union of every rank's val detections.  ``WORLD_SIZE > 1`` without a
+group that forms raises: no rank trains its shard alone.  The train model
 runs the config's ``reader.train_pillar_capacity`` and the eval model the
-serving capacity, sharing weights through ``val_epoch``.  Distributed
-training is not ported: under ``WORLD_SIZE > 1`` the CLI raises rather
-than train one process's shard alone.
+serving capacity, sharing weights through ``val_epoch``; the val loader
+keeps every sample (data/loader.py).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-import os
 
 import torch
 
+from pillarnext_tpu_torch import parallel
 from pillarnext_tpu_torch.data.loader import build_dataloader
 from pillarnext_tpu_torch.train.trainer import Trainer
 from pillarnext_tpu_torch.utils import builders
 from pillarnext_tpu_torch.utils.config import load_experiment
 
 
-def setup_logging() -> logging.Logger:
-    """The port's logger at INFO with its own handler."""
+def setup_logging(rank: int) -> logging.Logger:
+    """The port's logger with its own handler: INFO on rank 0, WARNING on
+    the other ranks."""
     log = logging.getLogger("pillarnext_tpu_torch")
-    log.setLevel(logging.INFO)
+    log.setLevel(logging.INFO if rank == 0 else logging.WARNING)
     if not log.handlers:
         h = logging.StreamHandler()
         h.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s"))
@@ -47,20 +62,15 @@ def setup_logging() -> logging.Logger:
     return log
 
 
-def single_process_device(device: str) -> torch.device:
-    """``device`` resolved (a CUDA device without a card raises); raises
-    under ``WORLD_SIZE > 1``."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("distributed is not ported yet, see ROADMAP")
-    return builders.resolve_device(device)
-
-
 def parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--config", required=True)
     p.add_argument("--work-dir", default="work_dir")
-    p.add_argument("--device", default="cuda:0",
-                   help="the card to run on (default cuda:0); cpu runs on the CPU")
+    p.add_argument("--device", default=None,
+                   help="this process's card (default cuda:{LOCAL_RANK}, cuda:0 alone); cpu runs on the CPU")
+    p.add_argument("--dist-backend", choices=parallel.BACKENDS, default="nccl",
+                   help="the process group's backend under torchrun (default nccl, one card a rank; "
+                        "gloo lets ranks share a card or run on the CPU)")
     p.add_argument("overrides", nargs="*", help="config overrides key.path=value (+key.path=value adds)")
     return p
 
@@ -72,10 +82,10 @@ def main(argv=None) -> Trainer:
     p.add_argument("--profile", default=None, metavar="LOGDIR",
                    help="write a torch.profiler trace of a few steady-state train steps")
     args = p.parse_args(argv)
-    device = single_process_device(args.device)
-    log = setup_logging()
+    device = parallel.init_from_env(args.dist_backend, args.device)
+    log = setup_logging(parallel.rank())
     cfg = load_experiment(args.config, args.overrides)
-    log.info("device: %s", device)
+    log.info("device: %s, rank %d of %d", device, parallel.rank(), parallel.world_size())
 
     train_ds = builders.build_dataset(cfg["data"]["train_dataset"])
     val_ds = builders.build_dataset(cfg["data"]["val_dataset"])
@@ -86,7 +96,7 @@ def main(argv=None) -> Trainer:
     train_loader = build_dataloader(train_ds, batch_size, max_points, shuffle=True,
                                     num_workers=int(dl_cfg["train"]["num_workers"]))
     val_loader = build_dataloader(val_ds, batch_size, max_points, shuffle=False,
-                                  num_workers=int(dl_cfg["val"]["num_workers"]))
+                                  num_workers=int(dl_cfg["val"]["num_workers"]), drop_last=False)
 
     # the train model may run a tighter table capacity than serving
     # (reader.train_pillar_capacity); parameter shapes are the same, so the
@@ -127,3 +137,4 @@ def main(argv=None) -> Trainer:
 
 if __name__ == "__main__":
     main()
+    parallel.shutdown()

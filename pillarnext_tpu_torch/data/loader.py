@@ -9,7 +9,16 @@ sampler.set_epoch, trainer.py:131-132); ``num_workers`` forked processes
 run the full numpy pipeline (GT-paste, multi-sweep decode, augment,
 assign, collate) in parallel and stream collated batches back over pickle
 pipes in order, overlapping host preprocessing with device compute.
-Batches are dropped-last so every step sees the same static shape.
+Train batches are dropped-last so every step sees the same shape.  Val
+loaders keep every sample (``drop_last=False``; the last batch of a shard
+may be short): JAX's val loader drops the last batch too, so any val set
+whose size is not a multiple of the global batch (nuScenes val: 6,019
+samples) loses samples and fails its scorer's one-entry-per-sample check
+(a defect of the reference the port does not copy).  Under W ranks each
+shard is padded to ``ceil(n / W)`` samples with the epoch's first ones, as
+JAX's and DistributedSampler do; rank r takes every W-th sample from r,
+the samples JAX's process r takes, and the padded duplicates collapse in
+``Trainer.val_epoch``'s gather.
 
 Determinism: every batch is loaded under random states derived from
 (seed, epoch, batch_index): a ``np.random.RandomState`` that the dataset
@@ -40,6 +49,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from pillarnext_tpu_torch import parallel
 from pillarnext_tpu_torch.data.collate import collate
 
 
@@ -179,19 +189,20 @@ def _get(q, proc, poll_s: float = 5.0):
 
 
 def build_dataloader(
-    dataset, batch_size: int, max_points: int, shuffle: bool, num_workers: int = 0, seed: int = 0
+    dataset, batch_size: int, max_points: int, shuffle: bool, num_workers: int = 0, seed: int = 0,
+    drop_last: bool = True,
 ) -> DataLoader:
-    """Reference-shaped builder (build_loader.py:8-27); one shard per
-    process of an initialised ``torch.distributed`` group, else one."""
-    dist = torch.distributed
-    distributed = dist.is_available() and dist.is_initialized()
+    """Reference-shaped builder (build_loader.py:8-27); one shard per rank
+    of the process group (parallel/), else one.  Val loaders pass
+    ``drop_last=False`` (module docstring)."""
     return DataLoader(
         dataset,
         batch_size=batch_size,
         max_points=max_points,
         shuffle=shuffle,
         seed=seed,
-        num_shards=dist.get_world_size() if distributed else 1,
-        shard_index=dist.get_rank() if distributed else 0,
+        num_shards=parallel.world_size(),
+        shard_index=parallel.rank(),
         num_workers=num_workers,
+        drop_last=drop_last,
     )

@@ -20,6 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from pillarnext_tpu_torch import parallel
+
 BN_EPS_SPARSE = 1e-3  # PFN + backbone blocks
 BN_EPS_DENSE = 1e-5   # neck / head blocks
 # flax momenta: the running statistics decay by ``momentum`` per step
@@ -44,13 +46,22 @@ class BatchNorm(nn.Module):
     ``m * running + (1 - m) * batch`` with the biased variance (not torch's
     unbiased one), unless ``update_statistics`` is off (a recomputed
     forward, ``statistics_frozen``).  State: weight, bias, running_mean,
-    running_var (no batch counter)."""
+    running_var (no batch counter).
+
+    ``sync`` (the config's ``sync_batchnorm``, set on a train model by
+    utils/builders.build_model): in training, with a process group, the
+    statistics are those of every rank's rows, JAX's global-batch
+    statistics — one differentiable all-reduce of the stacked
+    ``(Σx·m, Σx²·m, Σm)`` (``m = 1`` without ``valid``), issued at world
+    size 1 too.  A recomputed forward all-reduces again, in the same order
+    on every rank."""
 
     def __init__(self, channels: int, eps: float, momentum: float):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
         self.update_statistics = True
+        self.sync = False
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -75,21 +86,37 @@ class BatchNorm(nn.Module):
             inv, shift = self.folded()
             return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
         xf = x.float().movedim(channel_dim, -1).reshape(-1, x.shape[channel_dim])
+        mean, var = self._statistics(xf, valid)
+        self._update(mean, var)
         if valid is None:
-            mean = xf.mean(0)
-            var = torch.clamp((xf * xf).mean(0) - mean * mean, min=0.0)
-            self._update(mean, var)
             mul = torch.rsqrt(var + self.eps) * self.weight
             y = (x.float() - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
             return y.to(x.dtype)
-        m = valid.reshape(-1, 1).float()
-        cnt = torch.clamp(m.sum(), min=1.0)
-        mean = (xf * m).sum(0) / cnt
-        var = torch.clamp((xf * xf * m).sum(0) / cnt - mean * mean, min=0.0)
-        self._update(mean, var)
         inv = torch.rsqrt(var + self.eps) * self.weight
         shift = self.bias - mean * inv
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+    def _statistics(self, xf: torch.Tensor, valid) -> tuple[torch.Tensor, torch.Tensor]:
+        """Mean and biased variance of the rows of ``xf`` (the valid ones
+        with ``valid``), over every rank's rows under ``sync``."""
+        if self.sync and parallel.is_distributed():
+            c = xf.shape[1]
+            if valid is None:
+                sums = [xf.sum(0), (xf * xf).sum(0), xf.new_full((1,), xf.shape[0])]
+            else:
+                m = valid.reshape(-1, 1).float()
+                sums = [(xf * m).sum(0), (xf * xf * m).sum(0), m.sum().reshape(1)]
+            total = parallel.all_reduce_sum(torch.cat(sums))
+            cnt = torch.clamp(total[2 * c], min=1.0)
+            mean = total[:c] / cnt
+            return mean, torch.clamp(total[c:2 * c] / cnt - mean * mean, min=0.0)
+        if valid is None:
+            mean = xf.mean(0)
+            return mean, torch.clamp((xf * xf).mean(0) - mean * mean, min=0.0)
+        m = valid.reshape(-1, 1).float()
+        cnt = torch.clamp(m.sum(), min=1.0)
+        mean = (xf * m).sum(0) / cnt
+        return mean, torch.clamp((xf * xf * m).sum(0) / cnt - mean * mean, min=0.0)
 
 
 @contextlib.contextmanager

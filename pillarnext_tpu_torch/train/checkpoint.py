@@ -3,6 +3,9 @@
 Counterpart of pillarnext_tpu/train/checkpoint.py: per-epoch checkpoints
 carrying {meta{epoch, step}, model (parameters and BN statistics),
 opt_state}, a strict restore, and latest-checkpoint discovery for resume.
+Under a process group rank 0 writes (every rank holds the same state) and
+every rank waits at a barrier until the file is there; every rank reads it
+on resume.
 """
 
 from __future__ import annotations
@@ -12,12 +15,21 @@ from pathlib import Path
 
 import torch
 
+from pillarnext_tpu_torch import parallel
+
 
 def save_checkpoint(directory, epoch: int, model, optimizer) -> Path:
-    """Write ``epoch_{n}.pt`` under ``directory``."""
-    directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
-    path = directory / f"epoch_{epoch}.pt"
+    """Write ``epoch_{n}.pt`` under ``directory`` (rank 0; the others wait
+    for it)."""
+    path = Path(directory) / f"epoch_{epoch}.pt"
+    if parallel.rank() == 0:
+        _write(path, epoch, model, optimizer)
+    parallel.barrier()
+    return path
+
+
+def _write(path: Path, epoch: int, model, optimizer) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
     payload = {
         "meta": {"epoch": int(epoch), "step": int(optimizer.count)},
         "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
@@ -27,7 +39,6 @@ def save_checkpoint(directory, epoch: int, model, optimizer) -> Path:
     tmp = path.with_suffix(".tmp")
     torch.save(payload, tmp)
     tmp.replace(path)
-    return path
 
 
 def load_checkpoint(path) -> dict:

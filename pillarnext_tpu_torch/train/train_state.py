@@ -15,7 +15,11 @@ adamw(cosine_onecycle_schedule(...)))`` rather than torch's classes:
   on every parameter.
 
 The step returns its scalars as device tensors: nothing in it waits for
-the card.  ``accum_steps > 1`` is not ported (ROADMAP).
+the card, except the collectives of several ranks.  With a process group
+(parallel/) every gradient and logged scalar is summed across ranks in one
+flat all-reduce after the backward, before the clip: the losses'
+normalisers are global counts (models/losses.py), so the sum is the
+gradient of JAX's global-batch loss.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import math
 from typing import Callable
 
 import torch
+
+from pillarnext_tpu_torch import parallel
 
 
 def cosine_onecycle_schedule(
@@ -125,20 +131,67 @@ def overflow_total(telemetry: dict) -> torch.Tensor:
     return sum(vals) if vals else torch.zeros((), dtype=torch.int32)
 
 
-def train_step(model, optimizer: AdamW, batch: dict, plain: bool = False):
+def split_batch(batch: dict, parts: int) -> list[dict]:
+    """``batch`` (tensors or numpy arrays) cut along its leading (batch)
+    dim into ``parts`` equal micro-batches, in order; the per-task target
+    lists are cut element-wise, the tokens as a list."""
+    b = int(batch["points"].shape[0])
+    if b % parts:
+        raise ValueError(f"a batch of {b} does not split into {parts} equal parts")
+    n = b // parts
+
+    def cut(v, i):
+        if isinstance(v, list) and v and hasattr(v[0], "shape"):
+            return [t[i * n:(i + 1) * n] for t in v]
+        return v[i * n:(i + 1) * n]
+
+    return [{k: cut(v, i) for k, v in batch.items()} for i in range(parts)]
+
+
+def train_step(model, optimizer: AdamW, batch: dict, plain: bool = False, accum_steps: int = 1):
     """One step: train-mode forward + loss, backward (under
-    ``model.precision()``, as the forward), clip + AdamW.
+    ``model.precision()``, as the forward), the gradient all-reduce across
+    ranks, clip + AdamW.
+
+    ``accum_steps > 1`` (train_state.py:96-170) cuts the batch into that
+    many micro-batches, run in order: each normalised by its own (global)
+    counts and updating the BN statistics; the gradients, the loss and the
+    logs are their means, the telemetry their max, and the step makes one
+    optimizer update after one all-reduce.  With several ranks micro-batch
+    i is chunk i of every rank's local batch (JAX's multi-process reshape
+    groups them otherwise, an artefact of its sharding).
 
     Returns ({"loss", "grad_norm", "overflow", "telemetry"} as device
-    scalars, per-task log dicts detached)."""
+    scalars, per-task log dicts detached); the loss and logs are global
+    (summed over ranks), the telemetry this rank's."""
     model.train()
-    telemetry: dict = {}
-    loss, logs = model.loss(batch, telemetry=telemetry, plain=plain)
     for p in optimizer.params:
         p.grad = None
-    with model.precision():
-        loss.backward()
+    loss = None
+    logs: list[dict] = []
+    telemetry: dict = {}
+    for micro in (split_batch(batch, accum_steps) if accum_steps > 1 else [batch]):
+        tel: dict = {}
+        mloss, mlogs = model.loss(micro, telemetry=tel, plain=plain)
+        with model.precision():
+            mloss.backward()
+        mlogs = [{k: v.detach() for k, v in log.items()} for log in mlogs]
+        if loss is None:
+            loss, logs, telemetry = mloss.detach(), mlogs, tel
+        else:
+            loss = loss + mloss.detach()
+            logs = [{k: a[k] + b[k] for k in a} for a, b in zip(logs, mlogs)]
+            telemetry = {k: torch.maximum(telemetry[k], v) for k, v in tel.items()}
+    grads = []
+    for p in optimizer.params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    summed = grads + [loss] + [v for log in logs for v in log.values()]
+    parallel.all_reduce_(summed)
+    if accum_steps > 1:
+        torch._foreach_div_(summed, float(accum_steps))
     grad_norm = optimizer.step()
-    scalars = {"loss": loss.detach(), "grad_norm": grad_norm,
+    scalars = {"loss": loss, "grad_norm": grad_norm,
                "overflow": overflow_total(telemetry), "telemetry": telemetry}
-    return scalars, [{k: v.detach() for k, v in log.items()} for log in logs]
+    return scalars, logs

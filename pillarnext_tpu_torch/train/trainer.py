@@ -1,17 +1,27 @@
 """Trainer runtime: epoch loop, overflow check, evaluation, checkpoints.
 
-Counterpart of pillarnext_tpu/train/trainer.py:56-357, for one process.
-Each iteration is one ``train_step`` (train_state.py); scalars stay on the
-card and are read only at log ticks and at the end of the epoch, where
-``_check_overflow`` raises if any capacity counter reported dropped active
-sites — an undersized pillar capacity or ``stage_capacity_frac`` fails
-loudly instead of silently truncating the scene.  ``val_epoch`` predicts
-every val batch with the eval model (the serving capacity, the train
-model's weights and BN statistics), repairs a batch whose tables
-overflowed on a model built at 2x, 4x or 8x the capacity, brings each
-batch's detections to the host in one copy, and hands them to the
-dataset's scorer.  ``fit`` evaluates every ``eval_every_nepochs`` epochs
-and at ``eval_epochs``.
+Counterpart of pillarnext_tpu/train/trainer.py:56-357.  Each iteration is
+one ``train_step`` (train_state.py); scalars stay on the card and are read
+only at log ticks and at the end of the epoch, where ``_check_overflow``
+raises if any capacity counter reported dropped active sites — an
+undersized pillar capacity or ``stage_capacity_frac`` fails loudly instead
+of silently truncating the scene.  ``val_epoch`` predicts every val batch
+with the eval model (the serving capacity, the train model's weights and
+BN statistics), repairs a batch whose tables overflowed on a model built
+at 2x, 4x or 8x the capacity, brings each batch's detections to the host
+in one copy, and hands them to the dataset's scorer.  ``fit`` evaluates
+every ``eval_every_nepochs`` epochs and at ``eval_epochs``.
+
+Under a process group (parallel/; one process per card, each with its
+shard of the data) the parameters and BN statistics start as rank 0's, a
+step sums the gradients across ranks (train_state.py), every rank raises
+together on an overflow on any rank, ``val_epoch`` gathers every rank's
+detections to rank 0, which alone scores them, and rank 0 alone logs,
+traces and writes checkpoints.  Each rank's compact tables hold
+``capacity x`` its own batch, where JAX's one global table holds
+``capacity x`` the global batch: a rank whose samples are denser than the
+average can overflow where JAX would not, and the overflow check raises
+then.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from pathlib import Path
 
 import torch
 
+from pillarnext_tpu_torch import parallel
 from pillarnext_tpu_torch.train import checkpoint as ckpt_lib
 from pillarnext_tpu_torch.train.train_state import train_step
 from pillarnext_tpu_torch.utils import builders, profiling, progress
@@ -103,7 +114,9 @@ class Trainer:
         eval_overflow: what an overflowed val batch does: ``"repair"``
             (with ``eval_model_cfg``), ``"raise"``, or ``"warn"`` (once).
         profile_dir: write a torch.profiler trace of train steps 3-5 of
-            the first epoch there (utils/profiling.py).
+            the first epoch there (utils/profiling.py); rank 0 only.
+        accum_steps: micro-batches per step (train_state.train_step); each
+            batch's leading dim must divide by it.
     """
 
     def __init__(self, model, train_dataloader=None, optimizer=None, lr_schedule=None,
@@ -111,8 +124,9 @@ class Trainer:
                  accum_steps: int = 1, device="cuda:0", logger_=None, val_dataloader=None,
                  eval_every_nepochs: int = 1, eval_epochs=None, profile_dir=None,
                  eval_model=None, eval_model_cfg: dict | None = None, eval_overflow: str = "repair"):
-        if accum_steps != 1:
-            raise NotImplementedError("accum_steps > 1 not ported yet, see ROADMAP")
+        if int(accum_steps) < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        parallel.require_group()
         if eval_overflow not in ("repair", "raise", "warn"):
             raise ValueError(f"eval_overflow must be repair, raise or warn, got {eval_overflow!r}")
         self.device = resolve_device(device)
@@ -139,6 +153,7 @@ class Trainer:
         self.profile_dir = profile_dir
         self.eval_model_cfg = eval_model_cfg
         self.eval_overflow = eval_overflow
+        self.accum_steps = int(accum_steps)
         self.logger = logger_ or logger
         self.epoch = 0
         self.last_scalars = None
@@ -149,14 +164,21 @@ class Trainer:
         # the last val_epoch's detections by token, and its host timings
         self.last_detections: dict[str, dict] = {}
         self.val_timing: dict = {}
+        # every rank starts from rank 0's weights and BN statistics
+        parallel.broadcast_from_rank0_(list(model.state_dict().values()))
 
     @property
     def step(self) -> int:
         return self.optimizer.count
 
+    @property
+    def rank(self) -> int:
+        return parallel.rank()
+
     def train_step(self, batch: dict):
         """One optimizer step on a host or device batch."""
-        return train_step(self.model, self.optimizer, batch_to_device(batch, self.device))
+        return train_step(self.model, self.optimizer, batch_to_device(batch, self.device),
+                          accum_steps=self.accum_steps)
 
     def train_epoch(self):
         if hasattr(self.train_dataloader, "set_epoch"):
@@ -166,7 +188,7 @@ class Trainer:
         scalars = None
         self.epoch_losses, self.loader_wait_s = [], []
         # trace a few steady-state steps of the first epoch
-        trace_steps = range(3, 6) if (self.profile_dir and self.epoch == 0) else range(0)
+        trace_steps = range(3, 6) if (self.profile_dir and self.epoch == 0 and self.rank == 0) else range(0)
         with contextlib.ExitStack() as tracing:
             for i, batch in enumerate(_timed(self.train_dataloader, self.loader_wait_s)):
                 if trace_steps and i == trace_steps[0]:
@@ -177,16 +199,8 @@ class Trainer:
                     tracing.close()
                     self.logger.info("profiler trace written to %s", self.profile_dir)
                 if (i + 1) % self.log_every_niters == 0:
-                    lr = self.lr_schedule(self.step) if self.lr_schedule else float("nan")
-                    wait = self.loader_wait_s[-self.log_every_niters:]
-                    self.logger.info(
-                        "Epoch [%d/%d][%d/%d]\tlr: %.5f, loss: %.4f, %.2f it/s (loader wait %.0f ms/it)",
-                        self.epoch + 1, self.max_epochs, i + 1, num_iters, lr,
-                        float(scalars["loss"]), (i + 1) / (time.time() - t_start),
-                        sum(wait) / len(wait) * 1e3,
-                    )
-                    for log in logs:
-                        self.logger.info(", ".join(f"{k}: {v.tolist()}" for k, v in log.items()))
+                    if self.rank == 0:
+                        self._log_step(i, num_iters, t_start, scalars, logs)
                     self._check_overflow(scalars, f"epoch {self.epoch + 1} iter {i + 1}")
         # the epoch's last step is checked too, before the checkpoint
         self._check_overflow(scalars, f"epoch {self.epoch + 1} end")
@@ -194,15 +208,37 @@ class Trainer:
         self.epoch += 1
         ckpt_lib.save_checkpoint(self.work_dir / "checkpoints", self.epoch, self.model, self.optimizer)
 
+    def _log_step(self, i: int, num_iters: int, t_start: float, scalars: dict, logs: list):
+        lr = self.lr_schedule(self.step) if self.lr_schedule else float("nan")
+        wait = self.loader_wait_s[-self.log_every_niters:]
+        self.logger.info(
+            "Epoch [%d/%d][%d/%d]\tlr: %.5f, loss: %.4f, %.2f it/s (loader wait %.0f ms/it)",
+            self.epoch + 1, self.max_epochs, i + 1, num_iters, lr,
+            float(scalars["loss"]), (i + 1) / (time.time() - t_start), sum(wait) / len(wait) * 1e3,
+        )
+        for log in logs:
+            self.logger.info(", ".join(f"{k}: {v.tolist()}" for k, v in log.items()))
+
     def _check_overflow(self, scalars, where: str):
-        """Raise when capacity telemetry reports dropped active sites."""
-        if scalars is None or int(scalars["overflow"]) == 0:
+        """Raise when capacity telemetry reports dropped active sites, on
+        any rank: the overflow counters are all-reduced (MAX) first, so
+        every rank raises together instead of one raising while the others
+        wait in its next collective."""
+        if scalars is None:
             return
         tel = scalars["telemetry"]
-        detail = {k: int(v) for k, v in tel.items() if k.endswith("_overflow") and int(v) > 0}
+        names = sorted(k for k in tel if k.endswith("_overflow"))
+        counts = torch.stack([scalars["overflow"].to(self.device, torch.int64)]
+                             + [tel[k].to(self.device, torch.int64) for k in names])
+        parallel.all_reduce_([counts], op=torch.distributed.ReduceOp.MAX)
+        counts = counts.tolist()
+        if counts[0] == 0:
+            return
+        detail = {k: v for k, v in zip(names, counts[1:]) if v > 0}
         active = {k: int(v) for k, v in tel.items() if k.endswith("_active")}
+        ranks = f" (the largest over {parallel.world_size()} ranks)" if parallel.is_distributed() else ""
         raise RuntimeError(
-            f"capacity overflow at {where}: {detail} active sites were silently dropped "
+            f"capacity overflow at {where}: {detail}{ranks} active sites were silently dropped "
             f"(true active counts: {active}). Raise reader pillar capacity or backbone "
             "stage_capacity_frac to cover the data's dilated active sets."
         )
@@ -241,7 +277,12 @@ class Trainer:
     def val_epoch(self) -> dict | None:
         """Predict every val batch, score the detections with the dataset's
         ``evaluation`` into ``work_dir/results/epoch_{epoch}``, and return
-        the scorer's result.  Leaves ``model`` in the mode it found it in."""
+        the scorer's result.  Leaves ``model`` in the mode it found it in.
+        Under a process group each rank predicts its shard and rank 0
+        scores the union of every rank's detections by token (the
+        sampler's padded duplicates collapse in it); the other ranks return
+        None, as JAX's do.  ``val_timing`` and ``eval_repairs`` are this
+        rank's."""
         model = self.eval_model
         if model is not self.model:
             model.load_state_dict(self.model.state_dict())
@@ -251,7 +292,7 @@ class Trainer:
         waits: list[float] = []
         batch_s: list[float] = []
         warned = False
-        bar = progress.ProgressBar(len(self.val_dataloader))
+        bar = progress.ProgressBar(len(self.val_dataloader)) if self.rank == 0 else None
         try:
             for batch in _timed(self.val_dataloader, waits):
                 t0 = time.perf_counter()
@@ -273,19 +314,26 @@ class Trainer:
                                         "metrics", over)
                     warned = True
                 batch_s.append(time.perf_counter() - t0)
-                bar.update()
+                if bar is not None:
+                    bar.update()
                 for bi, token in enumerate(batch["token"]):
                     valid = dets["valid"][bi]
                     results[token] = {k: dets[k][bi][valid] for k in _DET_KEYS}
         finally:
             model.train(was_training)
 
+        self.val_timing = {"loader_wait_s": waits, "batch_s": batch_s, "scorer_s": None}
+        gathered = parallel.gather_to_rank0(results)
+        if gathered is None:
+            self.last_detections = results
+            return None
+        for shard in gathered[1:]:
+            results.update(shard)
         output_dir = self.work_dir / "results" / f"epoch_{self.epoch}"
         output_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         result = self.val_dataloader.dataset.evaluation(results, output_dir)
-        self.val_timing = {"loader_wait_s": waits, "batch_s": batch_s,
-                           "scorer_s": time.perf_counter() - t0}
+        self.val_timing["scorer_s"] = time.perf_counter() - t0
         self.last_detections = results
         if result:
             for k, v in result.items():

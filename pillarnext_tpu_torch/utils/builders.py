@@ -12,6 +12,7 @@ import copy
 
 import torch
 
+from pillarnext_tpu_torch.models.layers import BatchNorm
 from pillarnext_tpu_torch.utils.config import instantiate
 from pillarnext_tpu_torch.utils.registry import PORT_REGISTRY, check_targets
 from pillarnext_tpu_torch.utils.weights import init_random
@@ -43,7 +44,10 @@ def build_model(model_cfg: dict, device="cuda:0", generator: torch.Generator | N
     run under ``model.precision()`` (models/detector.py), which turns TF32
     off for cuDNN and CUDA matmuls inside those calls and restores the
     flags after; building a model changes no process-wide flag.
-    ``sync_batchnorm`` is dropped (one card; DDP is ROADMAP work).  A pillar reader feeding a SparseResNet that opens with stride 1
+    ``sync_batchnorm`` sets ``sync`` on every BatchNorm of a train model:
+    under a process group (parallel/) their statistics are those of the
+    global batch, as under JAX's global-view ``jit``; without a group it
+    changes nothing.  A pillar reader feeding a SparseResNet that opens with stride 1
     emits its compact table and the backbone runs sparse (the reference's
     sparse path); a voxel reader always emits its compact table for
     SparseResNet3D, in eval and in training.  ``train=True`` gives a pillar
@@ -60,7 +64,7 @@ def build_model(model_cfg: dict, device="cuda:0", generator: torch.Generator | N
     """
     device = resolve_device(device)
     cfg = copy.deepcopy(model_cfg)
-    cfg.pop("sync_batchnorm", None)
+    sync_bn = bool(cfg.pop("sync_batchnorm", False))
     train_cap = None
     if isinstance(cfg.get("reader"), dict):
         train_cap = cfg["reader"].pop("train_pillar_capacity", None)
@@ -91,6 +95,10 @@ def build_model(model_cfg: dict, device="cuda:0", generator: torch.Generator | N
     model = instantiate(cfg, registry=PORT_REGISTRY)
     if train and train_cap:
         model.reader.train_pillar_capacity = int(train_cap)
+    if train and sync_bn:
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.sync = True
     if generator is not None:
         init_random(model, generator)
     return model.to(device).train(train)

@@ -12,7 +12,9 @@
   on the mini nuScenes tree at tests/test_cli_e2e.py's overrides (64 x 64
   grid): the checkpoint and the scorer's files, test's detections equal to
   train's, ``--load-from``, ``--resume-from`` and the automatic resume;
-  ``WORLD_SIZE > 1`` raises.
+  ``WORLD_SIZE > 1`` without the rest of a rendezvous raises, and so does
+  ``--dist-backend nccl`` on the CPU (the distributed runs themselves are
+  in tests/test_torch_port_distributed.py).
 """
 
 from __future__ import annotations
@@ -251,9 +253,17 @@ def test_cli_load_from_and_resume(cli_run):
 
 
 def test_cli_refuses_more_than_one_process(monkeypatch, tmp_path):
+    """Several processes need a group that forms: WORLD_SIZE > 1 without
+    RANK and the rendezvous address raises instead of training one shard
+    alone; nccl on the CPU raises before any group forms."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     argv = ["--config", str(FLAGSHIP), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2 but"):
         cli_train.main(argv)
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2 but"):
         cli_test.main([*argv, "--checkpoint", str(tmp_path / "epoch_1.pt")])
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", "1")
+    with pytest.raises(RuntimeError, match="nccl backend needs a CUDA device"):
+        cli_train.main([*argv, "--dist-backend", "nccl"])

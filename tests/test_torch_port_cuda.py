@@ -30,7 +30,8 @@ card against the CPU, and kernel 2 at voxel18 training's densify shapes.
 MVF: the narrowed MVF detector on the card against the CPU, its f32 BEV
 bit-identical with the kernels and with their plain versions, and kernel 2
 as its pillar densify at full size (4,194,304 rows of 48 bf16 channels).
-No test here sets a TF32 flag.
+Distributed: a synced BatchNorm over two gloo ranks on the card against
+one process.  No test here sets a TF32 flag.
 """
 
 from __future__ import annotations
@@ -981,3 +982,33 @@ def test_small_mvf_train_step_gpu_matches_cpu(device):
     assert gpu[0] == pytest.approx(cpu[0], rel=1e-4)
     assert gpu[1] == cpu[1] and gpu[1]["cylinder_overflow"] == 0
     assert cpu[2] == (0, 0) and gpu[2] == (6, 10)
+
+
+def test_synced_batchnorm_on_the_card_matches_one_process(device, tmp_path):
+    """Two ranks over gloo, both on the card (gloo all-reduces CUDA
+    tensors and lets ranks share a card, which NCCL refuses), each with
+    its rows: a synced BatchNorm's output, input gradients, summed weight
+    and bias gradients and running statistics equal one BatchNorm over
+    every row on the card within 1e-6 (masked with 37 and 5 valid rows,
+    masked with none on one rank, unmasked)."""
+    import importlib.util
+    from pathlib import Path
+
+    # by path: the machine may hold another package named ``tests``
+    spec = importlib.util.spec_from_file_location("torch_dist_worker", Path(__file__).with_name("torch_dist_worker.py"))
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    cases = worker.bn_inputs()
+    procs = worker.spawn({"device": "cuda:0", "timeout_s": 60, "cases": cases}, tmp_path)
+    ranks = worker.collect(procs, tmp_path, 180)
+    for name, case in cases.items():
+        ref = worker.bn_reference(case, device)
+        outs = [out[name] for out in ranks]
+        assert not any("error" in o for o in outs), [o.get("error") for o in outs]
+        for r, out in enumerate(outs):
+            torch.testing.assert_close(out["y"], ref["y"][r].cpu(), rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(out["x_grad"], ref["x_grad"][r].cpu(), rtol=1e-6, atol=1e-6)
+            for k in ("running_mean", "running_var"):
+                torch.testing.assert_close(out[k], ref[k].cpu(), rtol=1e-6, atol=1e-6)
+        for k in ("weight_grad", "bias_grad"):
+            torch.testing.assert_close(outs[0][k] + outs[1][k], ref[k].cpu(), rtol=1e-6, atol=1e-6)

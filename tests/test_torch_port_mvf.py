@@ -60,6 +60,18 @@ from pillarnext_tpu_torch.utils.torch_import import export_mvf_view
 from pillarnext_tpu_torch.utils.weights import load_jax_variables
 from test_torch_port_e2e import randomized_variables
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread here: the suite runs several test processes on
+    the machine's cores, and each torch pool of all cores in each of them
+    oversubscribes the host many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 MVF = (
     Path(__file__).resolve().parent.parent
     / "pillarnext_tpu/configs/experiments/waymo_det_mvf18_aspp_iou_car.yaml"

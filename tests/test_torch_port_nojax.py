@@ -9,8 +9,11 @@ step, and then requires that no module named ``jax*``, ``flax*``,
 interpreters do the same for a predict of the small voxel18 model and for
 a voxel18 train step through the Trainer, one for a predict of the
 small MVF model (waymo_det_mvf18_aspp_iou_car) and one for an MVF train
-step through the Trainer; a last one imports the CLIs and the data
-package and asks both CLIs for ``--help``.
+step through the Trainer; a last one imports the CLIs, the data package
+and ``parallel``, asks both CLIs for ``--help`` and forms a 1-rank gloo
+group whose all-reduce it checks.  Each child runs torch on one thread
+(``OMP_NUM_THREADS=1``): the suite runs several test processes on the
+machine's cores.
 """
 
 from __future__ import annotations
@@ -71,7 +74,7 @@ print(json.dumps({
 
 def test_port_predict_imports_no_jax():
     flagship = REPO / "pillarnext_tpu/configs/experiments/nusc_det_pp18_aspp_iou_sp.yaml"
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(flagship)],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
@@ -120,7 +123,7 @@ print(json.dumps({
 
 def test_port_voxel18_predict_imports_no_jax():
     voxel18 = REPO / "pillarnext_tpu/configs/experiments/nusc_det_voxel18_aspp_iou_sp.yaml"
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", VOXEL_SCRIPT, str(voxel18)],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
@@ -173,7 +176,7 @@ def test_port_voxel18_train_step_imports_no_jax():
     """A bf16 voxel18 train step through the Trainer, in a fresh
     interpreter that imports only the port."""
     voxel18 = REPO / "pillarnext_tpu/configs/experiments/nusc_det_voxel18_aspp_iou_sp.yaml"
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", VOXEL_TRAIN_SCRIPT, str(voxel18)],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
@@ -225,7 +228,7 @@ print(json.dumps({
 
 def test_port_mvf_predict_imports_no_jax():
     mvf = REPO / "pillarnext_tpu/configs/experiments/waymo_det_mvf18_aspp_iou_car.yaml"
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", MVF_SCRIPT, str(mvf)],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
@@ -281,7 +284,7 @@ def test_port_mvf_train_step_imports_no_jax():
     """A bf16 MVF train step through the Trainer (the towers recomputed in
     the backward), in a fresh interpreter that imports only the port."""
     mvf = REPO / "pillarnext_tpu/configs/experiments/waymo_det_mvf18_aspp_iou_car.yaml"
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", MVF_TRAIN_SCRIPT, str(mvf)],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
@@ -314,11 +317,12 @@ def test_build_model_and_trainer_default_to_the_card():
 
 
 CLI_SCRIPT = r"""
-import contextlib, io, json, sys, time
+import contextlib, io, json, os, socket, sys, time
 t0 = time.perf_counter()
 import pillarnext_tpu_torch.cli.test
 import pillarnext_tpu_torch.cli.train
 import pillarnext_tpu_torch.data
+import pillarnext_tpu_torch.parallel as parallel
 
 helps = []
 for main in (pillarnext_tpu_torch.cli.train.main, pillarnext_tpu_torch.cli.test.main):
@@ -334,15 +338,27 @@ def foreign(name):
     top = name.split(".")[0]
     return top.startswith("jax") or top.startswith("flax") or top == "pillarnext_tpu"
 
-print(json.dumps({"helps": helps, "seconds": time.perf_counter() - t0,
+seconds = time.perf_counter() - t0
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+import torch
+device = parallel.init_from_env("gloo", "cpu", timeout_s=60)
+summed = parallel.all_reduce_sum(torch.tensor([1.0, 2.0]))
+group = [str(device), parallel.is_distributed(), parallel.rank(), parallel.world_size(), summed.tolist()]
+parallel.shutdown()
+
+print(json.dumps({"helps": helps, "seconds": seconds, "group": group,
                   "loaded": sorted(m for m in sys.modules if foreign(m))}))
 """
 
 
 def test_port_cli_imports_no_jax():
-    """The CLIs and the data package import, and answer ``--help``, in a
-    fresh interpreter without loading JAX or the JAX package."""
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    """The CLIs, the data package and ``parallel`` import, the CLIs answer
+    ``--help`` and a 1-rank gloo group forms and all-reduces, in a fresh
+    interpreter without loading JAX or the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", CLI_SCRIPT], capture_output=True, text=True, env=env,
                           cwd=REPO, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -351,5 +367,7 @@ def test_port_cli_imports_no_jax():
     assert train_code == test_code == 0
     assert "--load-from" in train_help and "--device" in train_help
     assert "--checkpoint" in test_help and "--device" in test_help
+    assert "--dist-backend" in train_help and "--dist-backend" in test_help
+    assert result["group"] == ["cpu", True, 0, 1, [1.0, 2.0]]
     assert result["loaded"] == []
     assert result["seconds"] < 15

@@ -41,6 +41,18 @@ from pillarnext_tpu_torch.utils.builders import build_model
 from pillarnext_tpu_torch.utils.weights import load_jax_variables
 from test_torch_port_e2e import randomized_variables
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread here: the suite runs several test processes on
+    the machine's cores, and each torch pool of all cores in each of them
+    oversubscribes the host many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 EXPERIMENTS = Path(__file__).resolve().parent.parent / "pillarnext_tpu/configs/experiments"
 PP18 = EXPERIMENTS / "waymo_det_pp18_aspp_iou_car_sp.yaml"
 VOXEL18 = EXPERIMENTS / "waymo_det_voxel18_aspp_iou_car.yaml"
