@@ -36,8 +36,10 @@ width, random weights from a seed:
   the same bits;
 - cli_train, cli_test: the port's CLIs in this process (``cli.train.main``,
   ``cli.test.main``) on a nuScenes-format tree the script writes from its
-  seed (8 train and 8 val samples of 10 sweeps, ~300k points a sample, a
-  GT database): the flagship as its YAML gives it trains 2 steps, runs the
+  seed (8 train and 8 val samples of 10 sweeps, ~300k points a sample,
+  under the infos names the YAML reads) with the GT database that the
+  port's ``create_groundtruth_database`` cuts from the train split's own
+  boxes: the flagship as its YAML gives it trains 2 steps, runs the
   epoch's ``val_epoch`` and the scorer, and ``cli.test`` scores the
   checkpoint; step and loader-wait ms, host ms per sample (GT paste
   apart), val ms per batch, repairs and scorer seconds; ``cli.test``'s
@@ -46,6 +48,15 @@ width, random weights from a seed:
   one card, one epoch with its evaluation on the same tree: each rank
   takes half the steps, one checkpoint, rank 0 scores every val token
   once;
+- cli_waymo, cli_waymo_test: the same CLIs on a Waymo tree in the
+  converter's schema (8 train and 8 val frames of 200k points, ~3% of
+  each flagged as no-label zone, up to 4 prior frames as sweeps) with its
+  GT database by the same tool: waymo_det_pp18_aspp_iou_car_sp as its
+  YAML gives it (2048^2, B = 4, 3 sweeps) trains 2 steps, runs
+  ``val_epoch`` and the Waymo export, and ``cli.test`` scores the
+  checkpoint; the loaded batch must hold no flagged point, the export one
+  entry per val frame, and ``cli.test``'s detections the bits of
+  ``cli.train``'s;
 - ddp_train: the port's data-parallel step (``parallel``: synced
   BatchNorm, global loss normalisers, one gradient all-reduce) on 2 ranks
   over gloo sharing the card, in processes of their own: an f32 step of
@@ -116,8 +127,10 @@ DDP_BF16_STEPS = 3
 DDP_TIMEOUT_S = 300  # each rank's process group and each multi-process phase
 SWEEPS = 10
 SWEEP_POINTS = 30_000
+WAYMO_FRAMES = 8  # train and val frames of the CLIs' Waymo tree
+NLZ_WEDGE_RAD = 0.2  # azimuth wedge of a Waymo frame flagged as a no-label zone
+NLZ_INTENSITY = -1.0  # the flagged points' intensity: no unflagged point has it (tanh of 0..255 / 128)
 POINTS_PER_SURFACE = 40  # the CLIs' scenes: ~55k occupied pillars a 300k-point frame
-DB_CROPS = 24  # GT-database crops per class
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
 
@@ -1042,8 +1055,11 @@ def bf16_train_repeat(cfg, batch, device, phase: str):
 
 
 def write_nuscenes_tree(root: Path, pc_range, class_names: list, seed: int) -> dict:
-    """A nuScenes-format tree (the infos pickle schema of the converter, .bin
-    sweeps, a GT database) of ``CLI_SAMPLES`` train and as many val samples.
+    """A nuScenes-format tree (the converter's infos pickles under the names
+    the flagship YAML reads, ``infos_{train,val}_10sweeps_withvelo_filterZero.pkl``,
+    and .bin sweeps) of ``CLI_SAMPLES`` train and as many val samples; its
+    GT database is built by the port's ``create_groundtruth_database``
+    (``cli_paths``).
 
     Each sample is one synthetic scene of ``SWEEPS x SWEEP_POINTS`` points
     (``utils/synth.synth_detection_scene``: 20-40 GT boxes at class-typical
@@ -1054,16 +1070,15 @@ def write_nuscenes_tree(root: Path, pc_range, class_names: list, seed: int) -> d
     sweeps; sweep k is written in the frame of an ego ``0.5 k`` m behind
     (and 0.002 k rad turned), with the transform back to the keyframe and
     ``time_lag`` 0.05 k in its info, as a 10-sweep nuScenes frame has
-    them.  The GT database holds ``DB_CROPS`` crops of each class."""
+    them."""
     import pickle
 
     import numpy as np
 
-    from pillarnext_tpu_torch.utils.synth import CLASS_SPECS, synth_detection_scene
+    from pillarnext_tpu_torch.utils.synth import synth_detection_scene
 
     rng = np.random.default_rng(seed)
     (root / "samples").mkdir(parents=True)
-    (root / "gtdb").mkdir()
 
     def sweep_transform(k):
         c, s = math.cos(0.002 * k), math.sin(0.002 * k)
@@ -1094,33 +1109,39 @@ def write_nuscenes_tree(root: Path, pc_range, class_names: list, seed: int) -> d
             infos.append({"lidar_path": f"samples/{token}_0.bin", "token": token, "sweeps": sweeps,
                           "ref_from_car": np.eye(4), "car_from_global": car_from_global,
                           "timestamp": float(i), "gt_boxes": boxes.astype(np.float64), "gt_names": names})
-        with open(root / f"infos_{split_name}.pkl", "wb") as f:
+        with open(root / nuscenes_infos(split_name), "wb") as f:
             pickle.dump(infos, f)
         return infos
 
     train, val = split("train"), split("val")
-    db = {}
-    for name in class_names:
-        (l, w, h), zc, _ = CLASS_SPECS[name]
-        db[name] = []
-        for j in range(DB_CROPS):
-            n = int(rng.integers(20, 200))
-            crop = np.zeros((n, 5), np.float32)
-            crop[:, :3] = rng.uniform(-0.5, 0.5, (n, 3)) * [l, w, h]
-            crop[:, 3] = rng.uniform(0, 255, n)
-            path = f"gtdb/{name}_{j}.bin"
-            crop.tofile(root / path)
-            box = np.array([*rng.uniform(-45, 45, 2), zc, l, w, h, 0.0, 0.0, rng.uniform(-math.pi, math.pi)],
-                           np.float32)
-            db[name].append({"name": name, "path": path, "box3d_lidar": box, "num_points_in_gt": n})
-    with open(root / "dbinfos.pkl", "wb") as f:
-        pickle.dump(db, f)
     points = [sum(np.fromfile(root / p, np.float32).size // 5 for p in
                   [info["lidar_path"], *(s["lidar_path"] for s in info["sweeps"])]) for info in train + val]
     return {"samples": {"train": len(train), "val": len(val)}, "points_per_sample": [min(points), max(points)],
             "gt_boxes_per_sample": [min(len(i["gt_names"]) for i in train + val),
-                                    max(len(i["gt_names"]) for i in train + val)],
-            "db_crops_per_class": DB_CROPS}
+                                    max(len(i["gt_names"]) for i in train + val)]}
+
+
+def nuscenes_infos(split_name: str) -> str:
+    """The nuScenes converter's infos file name for ``SWEEPS`` sweeps."""
+    return f"infos_{split_name}_{SWEEPS}sweeps_withvelo_filterZero.pkl"
+
+
+def gt_database(dataset: str, root: Path, info_path: str, nsweeps: int, class_names: list) -> dict:
+    """The port's ``create_groundtruth_database`` on the tree at ``root``
+    (its default crop directory and dbinfos name, the ones the YAMLs read):
+    host seconds, crops per class (a class with none stays so: the
+    sampler then pastes none of it) and the least and most points in a
+    crop."""
+    from pillarnext_tpu_torch.cli.create_gt_database import create_groundtruth_database
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        db = create_groundtruth_database(dataset, str(root), info_path=info_path, nsweeps=nsweeps)
+    seconds = time.perf_counter() - t0
+    counts = [e["num_points_in_gt"] for entries in db.values() for e in entries]
+    return {"host_seconds": seconds, "crops_per_class": {n: len(db.get(n, [])) for n in class_names},
+            "classes_without_crops": [n for n in class_names if not db.get(n)],
+            "points_per_crop": [min(counts), max(counts)] if counts else None}
 
 
 def pipeline_host_ms(ds_cfg, max_points: int, batch_size: int) -> dict:
@@ -1186,13 +1207,20 @@ def cli_instruments(counters):
     """Inside the block, every ``Trainer.train_step`` is fenced by CUDA
     synchronisations and timed into ``out["step_ms"]``, and every
     ``Trainer.val_epoch`` records the launch counts at its start and end and
-    its result into ``out["val"]``."""
+    its result into ``out["val"]``; the first host batch of training and of
+    validation are kept in ``out["first_batch"]`` under "train" and "val"."""
+    from pillarnext_tpu_torch.train import trainer as trainer_module
     from pillarnext_tpu_torch.train.trainer import Trainer
 
-    out = {"step_ms": [], "val": []}
-    train_step, val_epoch = Trainer.train_step, Trainer.val_epoch
+    out = {"step_ms": [], "val": [], "first_batch": {}}
+    train_step, val_epoch, to_device = Trainer.train_step, Trainer.val_epoch, trainer_module.batch_to_device
+
+    def kept_val_batch(batch, device):
+        out["first_batch"].setdefault("val", batch)
+        return to_device(batch, device)
 
     def timed_step(self, batch):
+        out["first_batch"].setdefault("train", batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = train_step(self, batch)
@@ -1202,7 +1230,11 @@ def cli_instruments(counters):
 
     def counted_val(self):
         before = {k.__name__: k.launches for k in counters}
-        result = val_epoch(self)
+        trainer_module.batch_to_device = kept_val_batch
+        try:
+            result = val_epoch(self)
+        finally:
+            trainer_module.batch_to_device = to_device
         out["val"].append({"before": before, "after": {k.__name__: k.launches for k in counters},
                            "result": result})
         return result
@@ -1243,6 +1275,91 @@ def cli_ddp_worker(out_dir: str, argv: list) -> None:
     parallel.shutdown()
 
 
+def cli_train_run(common: list, work: Path, overrides: list, counters) -> tuple:
+    """``cli.train.main`` in this process, its launches counted from 0,
+    its steps timed and its ``val_epoch`` recorded (``cli_instruments``):
+    (the Trainer, the record's common fields, the failures common to the
+    CLI paths: losses not finite, kernels 2 and 3 not launched in training
+    or 1 and 2 not in ``val_epoch``, detections not finite (D, 9) boxes;
+    the scorer's result, the first train and val host batches)."""
+    import numpy as np
+
+    from pillarnext_tpu_torch.cli import train as cli_train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    # the CLIs' progress bars go to stderr: stdout holds the JSON lines
+    with cli_instruments(counters) as inst, contextlib.redirect_stdout(sys.stderr):
+        trained = cli_train.main([*common, "--work-dir", str(work), *overrides])
+    train_s = time.perf_counter() - t0
+    val, = inst["val"]
+    in_training, in_val = val["before"], {k: val["after"][k] - val["before"][k] for k in val["after"]}
+    losses = [float(v) for v in trained.epoch_losses]
+    timing = trained.val_timing
+    rec = {"steps": len(inst["step_ms"]), "step_ms": inst["step_ms"],
+           "loader_wait_ms": [w * 1e3 for w in trained.loader_wait_s],
+           "loader_start_ms": trained.train_dataloader.start_s * 1e3,
+           "loader_batch_ms_in_worker": [t * 1e3 for t in trained.train_dataloader.load_s], "losses": losses,
+           "val_batches": len(timing["batch_s"]), "val_ms_per_batch": [b * 1e3 for b in timing["batch_s"]],
+           "val_loader_wait_ms": [w * 1e3 for w in timing["loader_wait_s"]],
+           "val_loader_start_ms": trained.val_dataloader.start_s * 1e3,
+           "val_loader_batch_ms_in_worker": [t * 1e3 for t in trained.val_dataloader.load_s],
+           "eval_repairs": trained.eval_repairs, "cli_seconds": train_s,
+           "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
+           "launches": {k.__name__: k.launches for k in counters}, "launches_in_training": in_training,
+           "launches_in_val_epoch": in_val}
+    failures = []
+    if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
+        failures.append(f"losses {losses}")
+    failures += [f"{name} never launched in training" for name in KERNELS[1:] if not in_training[name]]
+    failures += [f"{name} never launched in val_epoch" for name in KERNELS[:2] if not in_val[name]]
+    if not all(np.isfinite(d[k]).all() and d["box3d_lidar"].shape == (len(d["scores"]), 9)
+               for d in trained.last_detections.values() for k in ("box3d_lidar", "scores")):
+        failures.append("detections not finite or not (D, 9) boxes")
+    return trained, rec, failures, val["result"], inst["first_batch"]
+
+
+def cli_test_run(path: str, common: list, tmp: Path, overrides: list, counters, trained, scorer_key: str) -> dict:
+    """``cli.test.main`` on ``cli_train_run``'s checkpoint under
+    ``tmp/work``: emits ``path``'s record and raises unless kernels 1 and
+    2 launched and its detections are the bits of ``trained``'s; returns
+    its launches."""
+    import numpy as np
+
+    from pillarnext_tpu_torch.cli import test as cli_test
+
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        tested = cli_test.main([*common, "--checkpoint", str(tmp / "work/checkpoints/epoch_1.pt"),
+                                "--work-dir", str(tmp / f"{path}_work"), *overrides])
+    test_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counters}
+    ref, got = trained.last_detections, tested.last_detections
+    differing = sorted(t for t in ref if t not in got or any(
+        not np.array_equal(ref[t][k], got[t][k]) for k in ref[t]))
+    timing = tested.val_timing
+    emit({"phase": "main_path", "path": path, "cli_seconds": test_s,
+          "val_batches": len(timing["batch_s"]), "val_ms_per_batch": [b * 1e3 for b in timing["batch_s"]],
+          "val_loader_wait_ms": [w * 1e3 for w in timing["loader_wait_s"]],
+          "val_loader_start_ms": tested.val_dataloader.start_s * 1e3,
+          "val_loader_batch_ms_in_worker": [t * 1e3 for t in tested.val_dataloader.load_s],
+          "eval_repairs": tested.eval_repairs, scorer_key: timing["scorer_s"],
+          "detections": sum(len(d["scores"]) for d in got.values()),
+          "detections_bit_identical_to_cli_train": not differing and got.keys() == ref.keys(),
+          "differing_tokens": differing, "launches": launches})
+    failures = [f"{name} never launched" for name in KERNELS[:2] if not launches[name]]
+    if differing or got.keys() != ref.keys():
+        failures.append(f"detections differ from cli_train's for {differing or 'the token set'}")
+    if failures:
+        raise AssertionError(f"{path}: {failures}")
+    return launches
+
+
 def cli_paths(device) -> tuple[dict, dict, dict]:
     """The port's CLIs in this process on a nuScenes-format tree written
     here (``write_nuscenes_tree``): ``cli.train`` on the flagship as its
@@ -1263,10 +1380,6 @@ def cli_paths(device) -> tuple[dict, dict, dict]:
     its ranks)."""
     import os
 
-    import numpy as np
-
-    from pillarnext_tpu_torch.cli import test as cli_test
-    from pillarnext_tpu_torch.cli import train as cli_train
     from pillarnext_tpu_torch.utils.config import load_experiment
 
     cfg = load_experiment(FLAGSHIP)
@@ -1277,10 +1390,9 @@ def cli_paths(device) -> tuple[dict, dict, dict]:
         t0 = time.perf_counter()
         tree = write_nuscenes_tree(root, cfg["model"]["reader"]["pc_range"], class_names, seed=0)
         tree["host_seconds"] = time.perf_counter() - t0
+        tree["gt_database"] = gt_database("nuscenes", root, nuscenes_infos("train"), SWEEPS, class_names)
         workers = min(16, os.cpu_count() or 1)
-        overrides = [f"data.train_dataset.root_path={root}", "data.train_dataset.info_path=infos_train.pkl",
-                     "data.val_dataset.info_path=infos_val.pkl",
-                     "data.train_dataset.sampler.dbinfo_path=dbinfos.pkl", "trainer.max_epochs=1",
+        overrides = [f"data.train_dataset.root_path={root}", "trainer.max_epochs=1",
                      "data.train_dataset.resampling=false", f"dataloader.train.num_workers={workers}",
                      f"dataloader.val.num_workers={workers}"]
         run_cfg = load_experiment(FLAGSHIP, overrides)
@@ -1288,84 +1400,173 @@ def cli_paths(device) -> tuple[dict, dict, dict]:
         host = pipeline_host_ms(run_cfg["data"]["train_dataset"], int(dl["max_points"]),
                                 int(dl["train"]["batch_size"]))
         common = ["--config", str(FLAGSHIP), "--device", str(device)]
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for k in counters:
-            k.launches = 0
-        t0 = time.perf_counter()
-        # the CLIs' progress bars go to stderr: stdout holds the JSON lines
-        with cli_instruments(counters) as inst, contextlib.redirect_stdout(sys.stderr):
-            trained = cli_train.main([*common, "--work-dir", str(tmp / "work"), *overrides])
-        train_s = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in counters}
-        val, = inst["val"]
-        in_training, in_val = val["before"], {k: val["after"][k] - val["before"][k] for k in val["after"]}
-        losses = [float(v) for v in trained.epoch_losses]
+        trained, rec, failures, val_result, _ = cli_train_run(common, tmp / "work", overrides, counters)
         results = json.loads((tmp / "work/results/epoch_1/results_nusc.json").read_text())["results"]
-        timing = trained.val_timing
         rec = {"phase": "main_path", "path": "cli_train", "dtype": run_cfg["model"].get("dtype", "bfloat16"),
                "data": tree, "num_workers": workers, "batch_size": int(dl["train"]["batch_size"]),
-               "max_points": int(dl["max_points"]), "steps": len(inst["step_ms"]), "step_ms": inst["step_ms"],
-               "loader_wait_ms": [w * 1e3 for w in trained.loader_wait_s],
-               "loader_start_ms": trained.train_dataloader.start_s * 1e3,
-               "loader_batch_ms_in_worker": [t * 1e3 for t in trained.train_dataloader.load_s], "losses": losses,
-               "host_pipeline": host, "val_batches": len(timing["batch_s"]),
-               "val_ms_per_batch": [b * 1e3 for b in timing["batch_s"]],
-               "val_loader_wait_ms": [w * 1e3 for w in timing["loader_wait_s"]],
-               "val_loader_start_ms": trained.val_dataloader.start_s * 1e3,
-               "val_loader_batch_ms_in_worker": [t * 1e3 for t in trained.val_dataloader.load_s],
-               "eval_repairs": trained.eval_repairs, "scorer_seconds": timing["scorer_s"],
-               "results_nusc_entries": len(results), "mean_ap": val["result"]["mean_ap"],
-               "nd_score": val["result"]["nd_score"], "cli_seconds": train_s,
-               "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
-               "launches": launches, "launches_in_training": in_training, "launches_in_val_epoch": in_val}
+               "max_points": int(dl["max_points"]), **rec, "host_pipeline": host,
+               "scorer_seconds": trained.val_timing["scorer_s"], "results_nusc_entries": len(results),
+               "mean_ap": val_result["mean_ap"], "nd_score": val_result["nd_score"]}
         emit(rec)
-        failures = []
-        if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
-            failures.append(f"losses {losses}")
-        failures += [f"{name} never launched in training" for name in KERNELS[1:] if not in_training[name]]
-        failures += [f"{name} never launched in val_epoch" for name in KERNELS[:2] if not in_val[name]]
         if len(results) != CLI_SAMPLES:
             failures.append(f"results_nusc.json holds {len(results)} entries, expected {CLI_SAMPLES}")
         if not (math.isfinite(rec["mean_ap"]) and math.isfinite(rec["nd_score"])):
             failures.append("mean_ap / nd_score not finite")
-        if not all(np.isfinite(d[k]).all() and d["box3d_lidar"].shape == (len(d["scores"]), 9)
-                   for d in trained.last_detections.values() for k in ("box3d_lidar", "scores")):
-            failures.append("detections not finite or not (D, 9) boxes")
         if failures:
             raise AssertionError(f"cli_train: {failures}")
-
-        for k in counters:
-            k.launches = 0
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):
-            tested = cli_test.main([*common, "--checkpoint", str(tmp / "work/checkpoints/epoch_1.pt"),
-                                    "--work-dir", str(tmp / "work_test"), *overrides])
-        test_s = time.perf_counter() - t0
-        test_launches = {k.__name__: k.launches for k in counters}
-        ref, got = trained.last_detections, tested.last_detections
-        differing = sorted(t for t in ref if t not in got or any(
-            not np.array_equal(ref[t][k], got[t][k]) for k in ref[t]))
-        timing = tested.val_timing
-        emit({"phase": "main_path", "path": "cli_test", "cli_seconds": test_s,
-              "val_batches": len(timing["batch_s"]), "val_ms_per_batch": [b * 1e3 for b in timing["batch_s"]],
-              "val_loader_wait_ms": [w * 1e3 for w in timing["loader_wait_s"]],
-              "val_loader_start_ms": tested.val_dataloader.start_s * 1e3,
-              "val_loader_batch_ms_in_worker": [t * 1e3 for t in tested.val_dataloader.load_s],
-              "eval_repairs": tested.eval_repairs, "scorer_seconds": timing["scorer_s"],
-              "detections": sum(len(d["scores"]) for d in got.values()),
-              "detections_bit_identical_to_cli_train": not differing and got.keys() == ref.keys(),
-              "differing_tokens": differing, "launches": test_launches})
-        failures = [f"{name} never launched" for name in KERNELS[:2] if not test_launches[name]]
-        if differing or got.keys() != ref.keys():
-            failures.append(f"detections differ from cli_train's for {differing or 'the token set'}")
-        if failures:
-            raise AssertionError(f"cli_test: {failures}")
-        ddp_launches = cli_train_ddp(tmp, common, overrides, trained, train_s)
-        del trained, tested
+        launches = rec["launches"]
+        test_launches = cli_test_run("cli_test", common, tmp, overrides, counters, trained, "scorer_seconds")
+        ddp_launches = cli_train_ddp(tmp, common, overrides, trained, rec["cli_seconds"])
+        del trained
     torch.cuda.empty_cache()
     return launches, test_launches, ddp_launches
+
+
+def write_waymo_tree(root: Path, pc_range, class_names: list, seed: int) -> dict:
+    """A Waymo tree in the converter's output schema: ``WAYMO_FRAMES`` train
+    and as many val frames, each one ``synth_detection_scene`` of
+    ``N_POINTS`` points with 20-40 boxes of ``class_names``, written as
+    ``lidar_point/<token>.bin`` (N, 6) f32 [x y z tanh(intensity)
+    elongation nlz], where the points of one azimuth wedge of
+    ``NLZ_WEDGE_RAD`` (~3% of a frame) carry the no-label-zone flag 1 and
+    the intensity ``NLZ_INTENSITY``, which marks them through any
+    augmentation, and the rest -1; ``waymo_infos_{train,val}.pkl`` with each frame's pose (an
+    ego 0.5 m further along x a frame), timestamp, up to 4 prior frames of
+    its split as sweeps (nearest first) and ``objects`` of ``{id, label,
+    box[9], num_points}`` (points inside the box, flagged or not).
+    Returns each split's tokens and the points per frame before and after
+    the loader's NLZ filter."""
+    import pickle
+
+    import numpy as np
+
+    from pillarnext_tpu_torch.core import box_ops
+    from pillarnext_tpu_torch.utils.synth import synth_detection_scene
+
+    rng = np.random.default_rng(seed)
+    (root / "lidar_point").mkdir(parents=True)
+    tokens, before, after = {}, [], []
+    for split_name in ("train", "val"):
+        infos = []
+        for i in range(WAYMO_FRAMES):
+            token = f"segment_{split_name}-{1_000_000 + 100_000 * i}"
+            pts, boxes, names = synth_detection_scene(rng, N_POINTS, pc_range, int(rng.integers(20, 41)),
+                                                      class_names, points_per_surface=POINTS_PER_SURFACE)
+            # the wedge is centred on a random point's azimuth, so it flags some
+            azimuth = np.arctan2(pts[:, 1], pts[:, 0])
+            start = azimuth[rng.integers(len(pts))] - NLZ_WEDGE_RAD / 2
+            nlz = np.where(np.mod(azimuth - start, 2 * math.pi) < NLZ_WEDGE_RAD, 1.0, -1.0)
+            intensity = np.where(nlz[:, None] == 1, NLZ_INTENSITY, np.tanh(pts[:, 3:4] / 128.0))
+            cols = [pts[:, :3], intensity, rng.uniform(0, 0.5, (len(pts), 1)), nlz[:, None]]
+            np.concatenate(cols, axis=1).astype(np.float32).tofile(root / "lidar_point" / f"{token}.bin")
+            before.append(len(pts))
+            after.append(int((nlz == -1).sum()))
+            inside = box_ops.points_in_rbbox(pts[:, :3], boxes.astype(np.float64)).sum(axis=0)
+            pose = np.eye(4)
+            pose[0, 3] = 0.5 * i
+            info = {"token": token, "pose": pose, "timestamp": (1_000_000 + 100_000 * i) * 1e-6, "sweeps": [],
+                    "objects": [{"id": f"{token}_{j}", "label": str(names[j]), "box": boxes[j].astype(np.float32),
+                                 "num_points": int(inside[j])} for j in range(len(boxes))]}
+            for prev in infos[-4:][::-1]:
+                info["sweeps"].append({"token": prev["token"], "pose": prev["pose"],
+                                       "timestamp": info["timestamp"] - prev["timestamp"]})
+            infos.append(info)
+        with open(root / f"waymo_infos_{split_name}.pkl", "wb") as f:
+            pickle.dump(infos, f)
+        tokens[split_name] = [info["token"] for info in infos]
+    return {"frames": {k: len(v) for k, v in tokens.items()}, "tokens": tokens,
+            "points_per_frame_before_nlz": [min(before), max(before)],
+            "points_per_frame_after_nlz": [min(after), max(after)],
+            "nlz_fraction": [min(1 - a / b for a, b in zip(after, before)),
+                             max(1 - a / b for a, b in zip(after, before))]}
+
+
+def nlz_filtered(batches: dict, root: Path, nsweeps: int) -> dict:
+    """``cli.train``'s first train and val host batches
+    (``cli_instruments``): no loaded point of either carries
+    ``NLZ_INTENSITY`` (the flagged points' mark, kept through GT paste and
+    the augmentations), and each val sample holds exactly the unflagged
+    points of its frame and of the sweeps it reads (at most the batch's
+    width).  Raises otherwise."""
+    import pickle
+
+    import numpy as np
+
+    def frame_points(token):
+        return np.fromfile(root / "lidar_point" / f"{token}.bin", np.float32).reshape(-1, 6)
+
+    tagged = {name: int((b["points"][..., 3][b["points_mask"]] == NLZ_INTENSITY).sum())
+              for name, b in batches.items()}
+    with open(root / "waymo_infos_val.pkl", "rb") as f:
+        infos = {info["token"]: info for info in pickle.load(f)}
+    val, counts = batches["val"], []
+    for b, token in enumerate(val["token"]):
+        frames = [token, *(s["token"] for s in infos[token]["sweeps"][: nsweeps - 1])]
+        kept = sum(int((frame_points(t)[:, 5] == -1).sum()) for t in frames)
+        counts.append([int(val["points_mask"][b].sum()), min(kept, val["points_mask"].shape[1])])
+    if any(tagged.values()) or any(got != want for got, want in counts):
+        raise AssertionError(f"cli_waymo: NLZ-flagged points loaded {tagged}, "
+                             f"val points loaded vs unflagged {counts}")
+    return {"flagged_points_loaded": tagged,
+            "loaded_points": {name: int(b["points_mask"].sum()) for name, b in batches.items()},
+            "val_points_loaded_vs_unflagged": counts}
+
+
+def cli_waymo(device) -> tuple[dict, dict]:
+    """The port's CLIs on a Waymo tree written here (``write_waymo_tree``),
+    its GT database built by the port's ``create_groundtruth_database``
+    (``dbinfos_train_1sweeps_withvelo.pkl``, the name the YAML reads):
+    ``cli.train`` on waymo_det_pp18_aspp_iou_car_sp as its YAML gives it
+    (2048^2, B = 4, 3 sweeps, bf16, GT paste and augmentations) for one
+    epoch of 2 steps with the epoch's ``val_epoch`` and the Waymo export,
+    then ``cli.test`` of the checkpoint.  The overrides only point the
+    config at the tree, train one epoch and set the workers to
+    ``min(16, cores)``.  Fails unless the CLI's loaded batches hold no NLZ
+    point (``nlz_filtered``), kernels 2 and 3 launched in training, 1 and 2 in
+    ``val_epoch`` and in ``cli.test``, every loss is finite, the export
+    holds one entry per val frame and ``cli.test``'s detections are the
+    bits of ``cli.train``'s.  Returns the launches of both runs."""
+    import os
+
+    import numpy as np
+
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    cfg = load_experiment(WAYMO_PP18)
+    class_names = [n for task in cfg["data"]["train_dataset"]["class_names"] for n in task]
+    counters = kernel_counters()
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        root, tmp = Path(tmp) / "waymo", Path(tmp)
+        t0 = time.perf_counter()
+        tree = write_waymo_tree(root, cfg["model"]["reader"]["pc_range"], class_names, seed=1)
+        tree["host_seconds"] = time.perf_counter() - t0
+        val_tokens = tree.pop("tokens")["val"]
+        tree["gt_database"] = gt_database("waymo", root, "waymo_infos_train.pkl", 1, class_names)
+        workers = min(16, os.cpu_count() or 1)
+        overrides = [f"data.train_dataset.root_path={root}", "trainer.max_epochs=1",
+                     f"dataloader.train.num_workers={workers}", f"dataloader.val.num_workers={workers}"]
+        run_cfg = load_experiment(WAYMO_PP18, overrides)
+        dl = run_cfg["dataloader"]
+        common = ["--config", str(WAYMO_PP18), "--device", str(device)]
+        trained, rec, failures, val_result, batches = cli_train_run(common, tmp / "work", overrides, counters)
+        nlz = nlz_filtered(batches, root, int(run_cfg["data"]["val_dataset"]["nsweeps"]))
+        del batches
+        export = np.load(tmp / "work/results/epoch_1/waymo_preds.npz", allow_pickle=True)
+        exported = sorted(str(t) for t in export["tokens"])
+        emit({"phase": "main_path", "path": "cli_waymo", "config": WAYMO_PP18.stem,
+              "dtype": run_cfg["model"].get("dtype", "bfloat16"), "data": tree, "nlz": nlz,
+              "num_workers": workers, "batch_size": int(dl["train"]["batch_size"]),
+              "max_points": int(dl["max_points"]), **rec, "export_seconds": trained.val_timing["scorer_s"],
+              "export": val_result, "exported_frames": len(exported)})
+        if exported != sorted(val_tokens):
+            failures.append(f"the export holds {len(exported)} frames, expected the {len(val_tokens)} val frames")
+        if failures:
+            raise AssertionError(f"cli_waymo: {failures}")
+        test_launches = cli_test_run("cli_waymo_test", common, tmp, overrides, counters, trained, "export_seconds")
+        launches = rec["launches"]
+        del trained
+    torch.cuda.empty_cache()
+    return launches, test_launches
 
 
 def cli_train_ddp(tmp: Path, common: list, overrides: list, trained, train_s: float) -> dict:
@@ -1809,6 +2010,11 @@ def main() -> None:
     # then cli.train under torchrun on 2 ranks
     cli_train_launches, cli_test_launches, cli_ddp_launches = cli_paths(device)
 
+    # phase 8c': the CLIs on a Waymo tree (GT database by the port's tool,
+    # NLZ-flagged points): cli.train on Waymo pp18 (2 steps, val_epoch,
+    # the export) then cli.test
+    cli_waymo_launches, cli_waymo_test_launches = cli_waymo(device)
+
     # phase 8d: data-parallel training, 2 ranks over gloo on the card (an
     # f32 step against 1 process, then timed bf16 steps), 1 rank over NCCL
     ddp_launches, nccl_launches = ddp_paths(cfg, batches, device)
@@ -1885,7 +2091,8 @@ def main() -> None:
              **{path: w["launches"] for path, w in waymo.items()},
              "train": train_launches, "train_voxel18": vtrain_launches, **wtrain,
              "cli_train": cli_train_launches, "cli_test": cli_test_launches,
-             "cli_train_ddp": cli_ddp_launches, "ddp_train": ddp_launches, "ddp_nccl": nccl_launches}
+             "cli_train_ddp": cli_ddp_launches, "cli_waymo": cli_waymo_launches,
+             "cli_waymo_test": cli_waymo_test_launches, "ddp_train": ddp_launches, "ddp_nccl": nccl_launches}
     by_path = {k: {p: n[k] for p, n in paths.items()} for k in KERNELS}
     cases = records["gather_cases"]
     kernels_line = [

@@ -119,8 +119,10 @@ def test_cli_tree_reads_back_through_the_port_pipeline(tmp_path, monkeypatch):
     """The nuScenes-format tree of the CLI phases, at 2,000 points a sweep:
     each sample's 10 sweeps come back in the keyframe's frame (the sweeps'
     transforms undo the ego motion they were written under), the val infos
-    carry their GT, and the train pipeline (GT paste, augmentations,
-    targets) runs on it."""
+    carry their GT, the port's ``create_groundtruth_database`` cuts a GT
+    database from the train split's own boxes under the names the YAML
+    reads, and the train pipeline (GT paste, augmentations, targets) runs
+    on it with no path override but the root."""
     import numpy as np
 
     from pillarnext_tpu_torch.utils.builders import build_dataset
@@ -133,9 +135,13 @@ def test_cli_tree_reads_back_through_the_port_pipeline(tmp_path, monkeypatch):
     assert tree["samples"] == {"train": 8, "val": 8} and tree["points_per_sample"] == [20000, 20000]
     assert 20 <= tree["gt_boxes_per_sample"][0] <= tree["gt_boxes_per_sample"][1] <= 40
 
-    overrides = [f"data.train_dataset.root_path={tmp_path / 'nusc'}", "data.train_dataset.info_path=infos_train.pkl",
-                 "data.val_dataset.info_path=infos_val.pkl", "data.train_dataset.sampler.dbinfo_path=dbinfos.pkl",
-                 "data.train_dataset.resampling=false"]
+    db = chip_smoke.gt_database("nuscenes", tmp_path / "nusc", chip_smoke.nuscenes_infos("train"), 10, names)
+    assert sorted(db["crops_per_class"]) == sorted(names) and sum(db["crops_per_class"].values()) > 100
+    assert db["classes_without_crops"] == [n for n in names if not db["crops_per_class"][n]]
+    assert 0 <= db["points_per_crop"][0] <= db["points_per_crop"][1] and db["host_seconds"] > 0
+    assert (tmp_path / "nusc/dbinfos_train_10sweeps_withvelo.pkl").is_file()
+
+    overrides = [f"data.train_dataset.root_path={tmp_path / 'nusc'}", "data.train_dataset.resampling=false"]
     cfg = load_experiment(chip_smoke.FLAGSHIP, overrides)
     val = build_dataset(cfg["data"]["val_dataset"])
     sample = val.get(0, np.random.RandomState(0))
@@ -151,3 +157,53 @@ def test_cli_tree_reads_back_through_the_port_pipeline(tmp_path, monkeypatch):
 
     host = chip_smoke.pipeline_host_ms(cfg["data"]["train_dataset"], 30000, 4)
     assert host["samples"] == 8 and 0 < host["gt_paste_ms_per_sample"] < host["ms_per_sample"]
+
+
+def test_waymo_tree_gt_database_and_nlz_filter(tmp_path, monkeypatch):
+    """The Waymo tree of ``cli_waymo`` at 4,000 points a frame: the
+    converter's schema (6 columns, a few percent flagged as no-label
+    zone, up to 4 prior frames as sweeps), a GT database cut by the port's
+    tool under the name the YAML reads, the NLZ check on a loaded train and
+    val batch (a flagged point that leaks in fails it), and the train pipeline (GT paste from that database, 3 sweeps,
+    augmentations, targets) on it."""
+    import pickle
+
+    import numpy as np
+
+    from pillarnext_tpu_torch.data.collate import collate
+    from pillarnext_tpu_torch.utils.builders import build_dataset
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    monkeypatch.setattr(chip_smoke, "N_POINTS", 4000)
+    cfg = load_experiment(chip_smoke.WAYMO_PP18)
+    names = [n for task in cfg["data"]["train_dataset"]["class_names"] for n in task]
+    root = tmp_path / "waymo"
+    tree = chip_smoke.write_waymo_tree(root, cfg["model"]["reader"]["pc_range"], names, seed=1)
+    assert tree["frames"] == {"train": 8, "val": 8} and tree["points_per_frame_before_nlz"] == [4000, 4000]
+    assert 0 < tree["nlz_fraction"][0] <= tree["nlz_fraction"][1] < 0.5
+    infos = pickle.load(open(root / "waymo_infos_val.pkl", "rb"))
+    assert [len(i["sweeps"]) for i in infos] == [0, 1, 2, 3, 4, 4, 4, 4]
+    assert infos[5]["sweeps"][0]["token"] == infos[4]["token"]
+    assert infos[5]["sweeps"][0]["timestamp"] == pytest.approx(0.1)
+    assert {o["label"] for i in infos for o in i["objects"]} == set(names)
+    flags = np.fromfile(root / "lidar_point" / f"{infos[0]['token']}.bin", np.float32).reshape(-1, 6)[:, 5]
+    assert set(np.unique(flags)) == {-1.0, 1.0}
+
+    db = chip_smoke.gt_database("waymo", root, "waymo_infos_train.pkl", 1, names)
+    assert (root / "dbinfos_train_1sweeps_withvelo.pkl").is_file() and sum(db["crops_per_class"].values()) > 10
+    overrides = [f"data.train_dataset.root_path={root}"]
+    cfg = load_experiment(chip_smoke.WAYMO_PP18, overrides)
+    train, val = (build_dataset(cfg["data"][f"{split}_dataset"]) for split in ("train", "val"))
+    batches = {name: collate([ds.get(i, np.random.RandomState(i)) for i in range(4)], 12000,
+                             np.random.default_rng(0)) for name, ds in (("train", train), ("val", val))}
+    nlz = chip_smoke.nlz_filtered(batches, root, 3)
+    assert nlz["flagged_points_loaded"] == {"train": 0, "val": 0}
+    assert all(got == want for got, want in nlz["val_points_loaded_vs_unflagged"])
+    assert nlz["val_points_loaded_vs_unflagged"][3][0] > 2 * tree["points_per_frame_after_nlz"][0]  # 3 sweeps
+    leaked = dict(batches["train"], points=batches["train"]["points"].copy())
+    leaked["points"][0, 0, 3] = chip_smoke.NLZ_INTENSITY
+    with pytest.raises(AssertionError, match="NLZ-flagged points loaded"):
+        chip_smoke.nlz_filtered(dict(batches, train=leaked), root, 3)
+
+    sample = train.get(2, np.random.RandomState(0))
+    assert sample["points"].shape[1] == 5 and len(sample["hm"]) == 2

@@ -10,16 +10,25 @@ of tests/test_torch_port_train.py (f32, B = 2, its flip-free data and
 weight seeds):
 
 - (a) the 2-rank step (1 sample a rank) against JAX's 1-device step on the
-  same global batch, with that file's bars (loss 1e-5 relative, per-task
-  logs 1e-4, gradients 1e-3 of each tensor's largest, BN statistics 1e-5,
+  same global batch, at that file's data and weight seeds (the seed's own
+  weight draw), with that file's bars (loss 1e-5 relative, per-task logs
+  1e-4, gradients 1e-3 of each tensor's largest, BN statistics 1e-5,
   AdamW parameters 1e-5 or 2.5 lr0 where a gradient is rounding noise);
-  both ranks end with the same parameters.  At that file's seeds the
-  2-rank step's own rounding (batch-1 convolutions, statistics summed
-  across ranks) moves one per-task log entry past its bar (task 3's
-  loc_loss_elem[1], 4.1e-5 against 3.3e-5), so (a) takes that file's
-  near-seed rule: the first of ``A_DRAWS`` weight draws within 1e-6
-  relative of the seed's that meets every bar, with the loss at the bar
-  at every draw;
+  both ranks end with the same parameters.  Each rank records every
+  ReLU input (tests/torch_dist_worker.recorded_relus): the two inputs
+  that fall on the other side of 0 from JAX's lie within their call's
+  rounding noise (the port's 1-process step flips the same two), and
+  with JAX's ReLU masks (a second pair of ranks) the gradients, BN
+  statistics and AdamW parameters meet JAX's bars.  The per-task logs do
+  not meet JAX's bar at this draw, with JAX's masks or without (task 3's
+  loc_loss_elem[1] 4.0-4.1e-5 off, against 3.3e-5): the 2-rank reduction
+  order (batch-1 convolutions and GEMMs, statistics summed across ranks)
+  rounds differently, not a flip.  So the ranks' logs meet that bar
+  against the port's 1-process step, which meets it against JAX's, and
+  at every depth the ranks' ReLU inputs lie no further from the 1-process
+  step's than JAX's do (run as a script, this module prints the log
+  gaps: 2 ranks against JAX, against 1 process, 1 process against JAX,
+  and JAX on 2 devices against 1);
 - (b) ``BatchNorm(sync=True)`` alone, masked (37 and 5 valid rows; 0 and
   23) and unmasked (NCHW): forward, input, weight and bias gradients and
   running statistics equal one BatchNorm over the concatenated rows within
@@ -29,10 +38,14 @@ weight seeds):
 - (d) an undersized ``stage_capacity_frac`` on rank 0 only: both ranks
   raise the overflow, neither hangs, no checkpoint is written;
 - (e) ``accum_steps = 2``: the port's 1-process step against JAX's
-  accumulated step on the B = 2 batch, with (a)'s bars and near-seed rule
-  (at the seed's own draw a ReLU flips); 2 ranks x accum 2
-  against the port's 1-process accum-2 step on the batch regrouped as
-  train_state.train_step states (micro-batch i = chunk i of every rank);
+  accumulated step on the B = 2 batch at the seed's draw: the loss and
+  the per-task logs at (a)'s bars, and the one ReLU input on the other
+  side of 0 from JAX's lies within its call's rounding noise; with JAX's
+  masks the gradients (``check_flips``; the port's own masks miss their
+  bar 3.5x), the BN statistics, the AdamW parameters and the logs meet
+  (a)'s bars; 2 ranks x accum 2 against the port's 1-process accum-2 step on
+  the batch regrouped as train_state.train_step states (micro-batch i =
+  chunk i of every rank);
 - (f) ``cli.train`` under 2 ranks on ``make_mini_nuscenes(n_samples=5)``
   at B = 2 for one epoch: one step a rank (half the 1-process run's), one
   checkpoint, rank 0 scores all 5 val tokens once, rank 1 returns None;
@@ -68,16 +81,19 @@ from pillarnext_tpu.utils.config import load_experiment as jax_load_experiment
 from pillarnext_tpu.utils.torch_import import import_pillarnext
 from pillarnext_tpu_torch.data.loader import DataLoader
 from pillarnext_tpu_torch.data.synthetic import synthetic_batches
+from pillarnext_tpu_torch.train.train_state import split_batch, train_step
+from pillarnext_tpu_torch.train.trainer import batch_to_device
 from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
 from pillarnext_tpu_torch.utils.config import load_experiment
+from pillarnext_tpu_torch.utils.weights import load_jax_variables
 from tests import torch_dist_worker as worker
 from tests.test_cli_e2e import _overrides as cli_overrides
 from tests.test_data_pipeline import make_mini_nuscenes
 from tests.test_torch_port_e2e import FLAGSHIP, OVERRIDES
 from tests.test_torch_port_train import DATA_SEED, RECORD, STEPS_PER_EPOCH, WEIGHT_SEED, Pair, _feeds_train_bn
+from tests.test_torch_port_voxel_train import ReluTrace, as_port, check_flips, relu_flips
 
 TIMEOUT_S = 120
-A_DRAWS = 4
 MINI_SAMPLES = 5
 BN_CASES = ("masked", "masked_empty_rank", "unmasked")
 
@@ -166,16 +182,43 @@ def jax_val_raises(cfg_overrides, root, tmp_path):
     return str(err.value)
 
 
+class AccumPair(Pair):
+    """``pair``'s narrowed flagship with ``accum_steps = 2`` in both
+    packages; ``jax_step`` is JAX's accumulated step, compiled."""
+
+    def __init__(self, pair: Pair, jax_step):
+        self.__dict__.update(pair.__dict__)
+        self.jax_step = jax_step
+
+    def run_port(self, variables: dict, batch: dict):
+        model = build_model(self.cfg["model"], device="cpu", train=True)
+        load_jax_variables(model, variables)
+        opt, _ = build_optimizer(self.cfg, STEPS_PER_EPOCH, list(model.parameters()))
+        scalars, logs = train_step(model, opt, batch_to_device(batch, "cpu"), accum_steps=2)
+        return model, opt, scalars, logs
+
+
+class AccumTrace(ReluTrace):
+    """``ReluTrace`` of the accumulated step: JAX's ReLU inputs are its
+    micro-batches' forwards (contiguous halves of the batch, as both
+    packages cut them), in order."""
+
+    def jax_inputs(self, variables: dict, batch: dict) -> list:
+        return [x for micro in split_batch(batch, 2) for x in ReluTrace.jax_inputs(self, variables, micro)]
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """Start the 2 ranks and the 1-process reference process on their
-    cases, run JAX here meanwhile, then collect every process's outputs."""
+    cases, run JAX here meanwhile; then the port's 1-process step and
+    JAX's ReLU inputs here, 2 more ranks with JAX's ReLU masks and, here
+    meanwhile, the accumulated step's ReLU flips; then collect every
+    process's outputs."""
     tmp = tmp_path_factory.mktemp("dist")
     pair = Pair()
     cfg = pair.cfg
     batch = pair.batch(DATA_SEED)
-    draws = [pair.variables(batch, WEIGHT_SEED, d) for d in range(A_DRAWS)]
-    variables = draws[0]
+    variables = pair.variables(batch, WEIGHT_SEED)
     empty_rank = without_objects(pair.batch(DATA_SEED + 1), 1)
     batch4 = synthetic_batches(cfg, 1, 4, 3000, seed=DATA_SEED, n_objects=4, max_points=4000)[0]
     bn = worker.bn_inputs()
@@ -196,7 +239,7 @@ def run(tmp_path_factory):
     step = {"kind": "step", "cfg": cfg, "variables": variables, "steps_per_epoch": STEPS_PER_EPOCH}
     two_ranks = {"device": "cpu", "timeout_s": 60, "cases": {
         **{f"bn_{name}": case for name, case in bn.items()},
-        **{f"jax_batch_{d}": dict(step, batch=batch, variables=v) for d, v in enumerate(draws)},
+        "jax_batch": dict(step, batch=batch, relu=True),
         "empty_rank": dict(step, batch=empty_rank),
         "accum": dict(step, batch=batch4, accum_steps=2),
         "overflow": {"kind": "overflow", "cfgs": [undersized, ample], "batch": overflow_batch},
@@ -207,7 +250,6 @@ def run(tmp_path_factory):
     one_process = {"device": "cpu", "cases": {
         "empty_rank": dict(step, batch=empty_rank),
         "accum_one_process": dict(step, batch=regrouped(batch4, 2, 2), accum_steps=2),
-        **{f"accum_{d}": dict(step, batch=batch, variables=v, accum_steps=2) for d, v in enumerate(draws)},
         "cli": {"kind": "cli", "argv": [*common, "--work-dir", str(tmp / "work1"), *overrides]},
     }}
     procs = worker.spawn(two_ranks, tmp / "ranks"), worker.spawn(one_process, tmp / "one", world=1, group=False)
@@ -224,37 +266,53 @@ def run(tmp_path_factory):
             jax_val = pool.submit(jax_val_raises, overrides, root, tmp / "jax")
             refs = {f"bn_{name}": worker.bn_reference(case) for name, case in bn.items()}
             plain, accum, update = (c.result() for c in compiled)
-            refs["jax"] = [jax_step(v, batch, plain, update) for v in draws]
-            refs["accum_jax"] = [jax_step(v, batch, accum, update) for v in draws]
+            refs["jax"] = jax_step(variables, batch, plain, update)
+            refs["accum_jax"] = jax_step(variables, batch, accum, update)
             refs["jax_val_error"] = jax_val.result()
+        # ReLU traces once nothing else traces JAX (they replace flax's relu
+        # while JAX's forward is traced): the port's 1-process step and
+        # JAX's ReLU inputs, then 2 ranks with JAX's masks, and meanwhile
+        # the accumulated step's flips
+        one_step = worker.step_case(dict(step, batch=batch, relu=True), 0, 1, "cpu")
+        refs["jax_relu"] = [as_port(a, b, []) for a, b in
+                            zip(ReluTrace(pair).jax_inputs(variables, batch), one_step["relu_inputs"])]
+        pinned = [(a > 0, None if v is None else int(v.sum())) for a, v in zip(refs["jax_relu"],
+                                                                                  one_step["relu_valid"])]
+        procs += (worker.spawn({"device": "cpu", "timeout_s": 60, "cases": {
+            "pinned": dict(step, batch=batch, relu=True, pinned=pinned)}}, tmp / "pinned"),)
+        refs["accum_flips"] = relu_flips(AccumTrace(AccumPair(pair, accum)), DATA_SEED, WEIGHT_SEED)
     finally:
         ranks = worker.collect(procs[0], tmp / "ranks", TIMEOUT_S)
         one, = worker.collect(procs[1], tmp / "one", TIMEOUT_S)
-    for r, out in enumerate([*ranks, one]):
+        pinned_ranks = worker.collect(procs[2], tmp / "pinned", TIMEOUT_S) if len(procs) > 2 else None
+    for r, out in enumerate([*ranks, one, *pinned_ranks]):
         for name, res in out.items():
             assert not (isinstance(res, dict) and "error" in res), f"process {r}, case {name}:\n{res['error']}"
     assert [(out["rank"], out["world_size"]) for out in (*ranks, one)] == [(0, 2), (1, 2), (0, 1)]
     model = build_model(cfg["model"], device="cpu", train=True)
     lr0 = build_optimizer(cfg, STEPS_PER_EPOCH, list(model.parameters()))[0].schedule(0)
-    return {"pair": pair, "tmp": tmp, "refs": refs, "ranks": ranks, "one": one, "draws": draws,
-            "model": model, "lr0": lr0}
+    return {"pair": pair, "tmp": tmp, "refs": refs, "ranks": ranks, "one": one, "one_step": one_step,
+            "pinned": [out["pinned"] for out in pinned_ranks], "variables": variables, "model": model, "lr0": lr0}
 
 
-def check_against_jax(got: dict, jax_out: dict, pair: Pair, model, stats0: dict, lr0: float,
-                      accum_steps: int = 1) -> None:
-    """tests/test_torch_port_train.py's bars: loss, per-task logs,
-    gradients, BN statistics and AdamW parameters (the logs of an
-    accumulated step are means over its micro-batches)."""
-    assert float(got["loss"]) == pytest.approx(jax_out["loss"], rel=1e-5)
-    assert len(got["logs"]) == len(jax_out["logs"]) == 6
+def check_logs(logs: list, want_logs: list, accum_steps: int = 1) -> None:
+    """tests/test_torch_port_train.py's bar on the per-task logs (the logs
+    of an accumulated step are means over its micro-batches)."""
+    assert len(logs) == len(want_logs) == 6
     positives = 0
-    for log, want in zip(got["logs"], jax_out["logs"]):
+    for log, want in zip(logs, want_logs):
         assert set(log) == set(want)
         for key, w in want.items():
+            w = np.asarray(w)
             np.testing.assert_allclose(np.asarray(log[key]), w, rtol=1e-4, atol=1e-5 * float(np.abs(w).max()),
                                        err_msg=key)
         positives += int(want["num_positive"])
     assert positives * accum_steps >= 4, "vacuous: too few positive targets"
+
+
+def check_state(got: dict, jax_out: dict, pair: Pair, model, stats0: dict, lr0: float) -> None:
+    """tests/test_torch_port_train.py's bars on the gradients, the AdamW
+    parameters and the BN statistics."""
     grads = pair.export(model, jax_out["grads"], stats0)
     after = pair.export(model, jax_out["params"], jax_out["stats"])
     checked = n_noise = n_total = 0
@@ -281,6 +339,33 @@ def check_against_jax(got: dict, jax_out: dict, pair: Pair, model, stats0: dict,
         np.testing.assert_allclose(np.asarray(buf), after[name], rtol=1e-5, atol=1e-5, err_msg=name)
 
 
+def rank_relu_gaps(run, r: int) -> tuple[list, float, float]:
+    """Rank ``r``'s ReLU inputs of the 2-rank step against JAX's and the
+    port's 1-process step's, each cut to the rank's share
+    (``worker.rank_share``), over the rank's valid rows: each call's
+    inputs on the other side of 0 from JAX's as (call, count, largest
+    |input|, the call's largest |JAX - rank| where the signs agree); and
+    the largest |rank - 1-process| and |JAX - 1-process| over all calls,
+    each relative to its call's largest |1-process input|."""
+    got = run["ranks"][r]["jax_batch"]
+    one = run["one_step"]
+    flips, rank_gap, jax_gap = [], 0.0, 0.0
+    for call, (b, valid) in enumerate(zip(got["relu_inputs"], got["relu_valid"])):
+        n_global = None if one["relu_valid"][call] is None else int(one["relu_valid"][call].sum())
+        a, p = (worker.rank_share(x[call], n_global, valid, r, 2)
+                for x in (run["refs"]["jax_relu"], one["relu_inputs"]))
+        rows = np.ones(b.shape[0], bool) if valid is None else valid
+        a, b, p = a[rows], b[rows], p[rows]
+        flip = (a > 0) != (b > 0)
+        if flip.any():
+            flips.append((call, int(flip.sum()), float(np.maximum(np.abs(a), np.abs(b))[flip].max()),
+                          float(np.abs(a - b)[~flip].max())))
+        scale = float(np.abs(p).max())
+        rank_gap = max(rank_gap, float(np.abs(b - p).max()) / scale)
+        jax_gap = max(jax_gap, float(np.abs(a - p).max()) / scale)
+    return flips, rank_gap, jax_gap
+
+
 def check_equal_steps(got: dict, want: dict, rtol: float = 1e-5) -> None:
     """Two steps of the port on the same global batch: loss, logs,
     gradients (1e-3 of each tensor's largest, as against JAX) and BN
@@ -301,32 +386,31 @@ def check_equal_steps(got: dict, want: dict, rtol: float = 1e-5) -> None:
                                        err_msg=name)
 
 
-def first_draw_at_the_bars(run, steps: list, jax_outs: list, accum_steps: int = 1) -> int:
-    """tests/test_torch_port_train.py's near-seed rule: the first weight
-    draw whose steps (one per rank, or the port's one) meet every bar
-    against JAX's; the loss meets its bar at every draw."""
-    model, lr0 = run["model"], run["lr0"]
-    missed = []
-    for d, (variables, got, want) in enumerate(zip(run["draws"], steps, jax_outs)):
-        for g in got:
-            assert float(g["loss"]) == pytest.approx(want["loss"], rel=1e-5), d
-        try:
-            for g in got:
-                check_against_jax(g, want, run["pair"], model, variables["batch_stats"], lr0, accum_steps)
-            return d
-        except AssertionError as e:
-            missed.append(f"draw {d}: {str(e)[:200]}")
-    pytest.fail(f"no weight draw near the seed meets the bars: {missed}")
-
-
 def test_two_rank_step_matches_jax_one_device(run):
-    """(a): 1 sample a rank against JAX's 1-device step on both."""
-    steps = [[out[f"jax_batch_{d}"] for out in run["ranks"]] for d in range(A_DRAWS)]
-    first_draw_at_the_bars(run, steps, run["refs"]["jax"])
+    """(a): 1 sample a rank against JAX's 1-device step on both, at the
+    seed's own weight draw: the loss at its bar; every ReLU input on the
+    other side of 0 from JAX's within its call's rounding noise; with
+    JAX's masks the gradients, AdamW parameters and BN statistics at their
+    bars; the logs at their bar against the port's 1-process step, whose
+    logs meet it against JAX's; and the ranks' ReLU inputs no further from
+    the 1-process step's than JAX's are."""
+    jax_out, pair, model, lr0 = run["refs"]["jax"], run["pair"], run["model"], run["lr0"]
+    stats0 = run["variables"]["batch_stats"]
+    one = run["one_step"]
+    check_logs(one["logs"], jax_out["logs"])
+    for r, (out, pinned) in enumerate(zip(run["ranks"], run["pinned"])):
+        got = out["jax_batch"]
+        assert float(got["loss"]) == pytest.approx(jax_out["loss"], rel=1e-5)
+        flips, rank_gap, jax_gap = rank_relu_gaps(run, r)
+        for call, count, size, noise in flips:
+            assert size <= noise, (r, call, count, size, noise)
+        assert rank_gap <= jax_gap, (r, rank_gap, jax_gap)
+        check_state(pinned, jax_out, pair, model, stats0, lr0)
+        check_logs(got["logs"], one["logs"])
 
 
 def test_ranks_end_the_step_with_the_same_state(run):
-    a, b = (out["jax_batch_0"] for out in run["ranks"])
+    a, b = (out["jax_batch"] for out in run["ranks"])
     assert float(a["loss"]) == float(b["loss"]) and float(a["grad_norm"]) == float(b["grad_norm"])
     for k, v in a["state"].items():
         assert torch.equal(v, b["state"][k]), k
@@ -368,11 +452,22 @@ def test_overflow_on_one_rank_raises_on_both(run):
 
 def test_accum_steps_matches_jax(run):
     """(e): accum_steps = 2 at one process against JAX's accumulated step
-    on the same B = 2 batch (micro-batches of one sample), at the first
-    weight draw near the seed that meets every bar: at the seed's own
-    draw a ReLU flips (3.5x the gradient bar in ``head.tasks.2.hm``)."""
-    steps = [[run["one"][f"accum_{d}"]] for d in range(A_DRAWS)]
-    first_draw_at_the_bars(run, steps, run["refs"]["accum_jax"], 2)
+    on the same B = 2 batch (micro-batches of one sample), at the seed's
+    own weight draw: the loss and the per-task logs (means over the
+    micro-batches) at their bars; every gradient gap is a ReLU flip within
+    its call's rounding noise (``check_flips``); and with JAX's masks the
+    gradients, the AdamW parameters and the BN statistics (each
+    micro-batch updates them) at their bars, and the logs again."""
+    r, jax_out = run["refs"]["accum_flips"], run["refs"]["accum_jax"]
+    assert r["loss_rel"] <= 1e-5, r["loss_rel"]
+    check_logs(r["logs"], jax_out["logs"], accum_steps=2)
+    check_flips(r)
+    if not r["flips"]:
+        assert r["free"] <= 1.0, r
+    model, logs = r["pinned_step"]
+    got = {"grads": {n: p.grad for n, p in model.named_parameters()}, "state": model.state_dict()}
+    check_state(got, jax_out, run["pair"], run["model"], run["variables"]["batch_stats"], run["lr0"])
+    check_logs(logs, jax_out["logs"], accum_steps=2)
 
 
 def test_two_ranks_with_accum_match_one_process(run):
@@ -449,3 +544,48 @@ def test_a_group_that_cannot_form_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="NCCL refuses"):
         parallel.init_from_env("nccl", "cuda:0")
     assert not parallel.is_distributed()
+
+
+def log_bar_ratio(logs: list, want_logs: list) -> float:
+    """The largest per-task log gap over ``check_logs``' bar (<= 1 passes)."""
+    ratio = 0.0
+    for log, want in zip(logs, want_logs):
+        for key, w in want.items():
+            w = np.asarray(w, np.float64)
+            bar = 1e-4 * np.abs(w) + 1e-5 * np.abs(w).max()
+            gap = np.abs(np.asarray(log[key], np.float64) - w)
+            ratio = max(ratio, float((gap / np.maximum(bar, 1e-30)).max()))
+    return ratio
+
+
+def log_gap_readings() -> None:
+    """Print, at (a)'s seed draw, ``log_bar_ratio`` between the 2-rank
+    step and JAX's 1-device step, the 2-rank and the port's 1-process
+    step, that step and JAX's, and JAX's 2-device step (the batch sharded
+    over 2 CPU devices) and its 1-device step."""
+    import tempfile
+    from pathlib import Path
+
+    torch.set_num_threads(1)
+    pair = Pair()
+    batch = pair.batch(DATA_SEED)
+    variables = pair.variables(batch, WEIGHT_SEED)
+    step = dict(kind="step", cfg=pair.cfg, variables=variables, steps_per_epoch=STEPS_PER_EPOCH, batch=batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = worker.spawn({"device": "cpu", "timeout_s": 60, "cases": {"step": step}}, Path(tmp))
+        one = worker.step_case(step, 0, 1, "cpu")
+        jax_one = pair.jax_step(jax_train_state(variables), jax.tree.map(jnp.asarray, batch))[1][1]
+        mesh = mesh_lib.make_mesh(jax.devices()[:2])
+        jax_two = pair.jax_step(jax.device_put(jax_train_state(variables), mesh_lib.replicated(mesh)),
+                                mesh_lib.shard_batch(batch, mesh))[1][1]
+        ranks = [out["step"]["logs"] for out in worker.collect(procs, Path(tmp), TIMEOUT_S)]
+    for name, ratio in (("2 ranks vs JAX", max(log_bar_ratio(r, jax_one) for r in ranks)),
+                        ("2 ranks vs 1 process", max(log_bar_ratio(r, one["logs"]) for r in ranks)),
+                        ("1 process vs JAX", log_bar_ratio(one["logs"], jax_one)),
+                        ("JAX 2 devices vs 1", log_bar_ratio(jax_two, jax_one))):
+        print(f"{name:22s} {ratio:.4f} of the log bar")
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=2 python -m tests.test_torch_port_distributed
+    log_gap_readings()

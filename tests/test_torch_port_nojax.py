@@ -11,7 +11,10 @@ a voxel18 train step through the Trainer, one for a predict of the
 small MVF model (waymo_det_mvf18_aspp_iou_car) and one for an MVF train
 step through the Trainer; a last one imports the CLIs, the data package
 and ``parallel``, asks both CLIs for ``--help`` and forms a 1-rank gloo
-group whose all-reduce it checks.  Each child runs torch on one thread
+group whose all-reduce it checks.  Four more import each offline
+data-preparation module (``cli.create_data``, ``cli.create_gt_database``,
+``data.nusc_converter``, ``data.waymo_converter``) with every devkit
+import made to fail.  Each child runs torch on one thread
 (``OMP_NUM_THREADS=1``): the suite runs several test processes on the
 machine's cores.
 """
@@ -371,3 +374,62 @@ def test_port_cli_imports_no_jax():
     assert result["group"] == ["cpu", True, 0, 1, [1.0, 2.0]]
     assert result["loaded"] == []
     assert result["seconds"] < 15
+
+
+DATAPREP_SCRIPT = r"""
+import contextlib, importlib, io, json, sys
+DEVKITS = ("nuscenes", "pyquaternion", "waymo_open_dataset", "tensorflow")
+for name in DEVKITS:
+    sys.modules[name] = None  # any import of a devkit now raises ImportError
+module = importlib.import_module(sys.argv[1])
+
+calls = {}
+if hasattr(module, "main"):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            module.main(["--help"])
+        except SystemExit as e:
+            calls["help"] = [e.code, out.getvalue()]
+for name, args in (("create_nuscenes_infos", ("/nonexistent",)), ("convert", ("/nonexistent", "/nonexistent"))):
+    if hasattr(module, name):
+        try:
+            getattr(module, name)(*args)
+        except ImportError as e:
+            calls[name] = str(e)
+
+def foreign(name):
+    top = name.split(".")[0]
+    return top.startswith("jax") or top.startswith("flax") or top == "pillarnext_tpu"
+
+print(json.dumps({"calls": calls, "loaded": sorted(m for m in sys.modules if foreign(m)),
+                  "devkits": sorted(m for m in sys.modules if m.split(".")[0] in DEVKITS and sys.modules[m])}))
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "pillarnext_tpu_torch.cli.create_data",
+    "pillarnext_tpu_torch.cli.create_gt_database",
+    "pillarnext_tpu_torch.data.nusc_converter",
+    "pillarnext_tpu_torch.data.waymo_converter",
+])
+def test_port_dataprep_imports_no_jax_and_no_devkit(module):
+    """Each offline data-preparation module imports in a fresh interpreter
+    where every devkit import fails (nuscenes, pyquaternion,
+    waymo_open_dataset, tensorflow), loads no JAX or JAX package, answers
+    ``--help`` where it is a CLI, and its converter raises an ImportError
+    that names the devkit at the call."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", DATAPREP_SCRIPT, module], capture_output=True, text=True,
+                          env=env, cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["loaded"] == [] and result["devkits"] == []
+    calls = result["calls"]
+    if module.startswith("pillarnext_tpu_torch.cli."):
+        code, text = calls["help"]
+        assert code == 0 and ("waymo_data_prep" if module.endswith("create_data") else "--root-path") in text
+    elif module.endswith("nusc_converter"):
+        assert "nuscenes devkit is required" in calls["create_nuscenes_infos"]
+    else:
+        assert "waymo_open_dataset are required" in calls["convert"]

@@ -46,6 +46,7 @@ from pillarnext_tpu_torch.utils.config import load_experiment
 from pillarnext_tpu_torch.utils.weights import load_jax_variables, state_dict_from_jax
 from tests.test_torch_port_train import RECORD, _feeds_train_bn, _np, random_variables
 from tests.test_torch_port_voxel_e2e import OVERRIDES, VOXEL18
+from tests.torch_dist_worker import recorded_relus
 
 DATA_SEED = 1
 WEIGHT_SEED = 0
@@ -312,30 +313,22 @@ class ReluTrace:
         """(model after the step, scalars, logs, ReLU inputs in first-seen
         order, the reader's compactify orders); with ``pinned`` (JAX's
         inputs) each ReLU passes ``x`` where JAX's input is positive."""
-        inputs, index, orders = [], {}, []
-        relu, compactify = torch.relu, mvf_encoder.compactify
-
-        def hooked_relu(x):
-            key = (tuple(x.shape), x.detach().numpy().tobytes())
-            if key not in index:
-                index[key] = len(inputs)
-                inputs.append(x.detach().clone())
-            if pinned is None:
-                return relu(x)
-            i = index[key]
-            return torch.where(torch.from_numpy(as_port(pinned[i], inputs[i].numpy(), orders) > 0), x, 0.0)
+        orders = []
+        compactify = mvf_encoder.compactify
 
         def hooked_compactify(*args, **kwargs):
             out = compactify(*args, **kwargs)
             orders.append(out[0])
             return out
 
-        torch.relu, mvf_encoder.compactify = hooked_relu, hooked_compactify
+        pin = None if pinned is None else (lambda i, _: as_port(pinned[i], inputs[i], orders) > 0)
+        mvf_encoder.compactify = hooked_compactify
         try:
-            model, _, scalars, logs = self.pair.run_port(variables, batch)
+            with recorded_relus(pin) as (inputs, _):
+                model, _, scalars, logs = self.pair.run_port(variables, batch)
         finally:
-            torch.relu, mvf_encoder.compactify = relu, compactify
-        return model, scalars, logs, [t.numpy() for t in inputs], orders
+            mvf_encoder.compactify = compactify
+        return model, scalars, logs, inputs, orders
 
 
 def as_port(a: np.ndarray, like: np.ndarray, orders: list) -> np.ndarray:
@@ -372,7 +365,8 @@ def relu_flips(trace: ReluTrace, data_seed: int, weight_seed: int) -> dict:
     and pinned, the number of ReLU calls, and per ReLU call whose inputs
     differ in sign: (call, count, the largest |input| on either side at
     those elements, the largest |JAX - port| where the signs agree, the
-    call's largest |JAX input|).
+    call's largest |JAX input|); the port's logs, and the pinned step's
+    model and logs (``pinned_step``).
     Kept in ``trace.results``."""
     key = (data_seed, weight_seed)
     if key in trace.results:
@@ -382,7 +376,7 @@ def relu_flips(trace: ReluTrace, data_seed: int, weight_seed: int) -> dict:
     variables = pair.variables(batch, weight_seed)
     jax_in = trace.jax_inputs(variables, batch)
     new_state, scalars, _ = pair.run_jax(variables, batch)
-    model, pscalars, _, port_in, orders = trace.port_step(variables, batch)
+    model, pscalars, plogs, port_in, orders = trace.port_step(variables, batch)
     want = pair.export(model, _np(new_state.opt_state["g"]), variables["batch_stats"])
     assert len(port_in) == len(jax_in)
     flips = []
@@ -392,12 +386,12 @@ def relu_flips(trace: ReluTrace, data_seed: int, weight_seed: int) -> dict:
         if flip.any():
             flips.append((i, int(flip.sum()), float(np.maximum(np.abs(a), np.abs(b))[flip].max()),
                           float(np.abs(a - b)[~flip].max()), float(np.abs(a).max())))
-    pinned_model = trace.port_step(variables, batch, pinned=jax_in)[0]
+    pinned_model, _, pinned_logs = trace.port_step(variables, batch, pinned=jax_in)[:3]
     loss = float(scalars["loss"])
     trace.results[key] = {
         "loss_rel": abs(float(pscalars["loss"]) - loss) / abs(loss),
         "free": gradient_ratio(model, want)[0], "pinned": gradient_ratio(pinned_model, want)[0],
-        "calls": len(jax_in), "flips": flips,
+        "calls": len(jax_in), "flips": flips, "logs": plogs, "pinned_step": (pinned_model, pinned_logs),
     }
     return trace.results[key]
 

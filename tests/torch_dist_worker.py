@@ -14,6 +14,7 @@ port only, never JAX.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import socket
@@ -128,17 +129,91 @@ def bn_reference(case: dict, device="cpu") -> dict:
 def step_case(case: dict, rank: int, world: int, device) -> dict:
     """One train step of the case's model (its numpy weights) on this
     rank's share of the case's batch: the global loss and logs, the
-    summed gradients, the state after AdamW."""
+    summed gradients, the state after AdamW.  With ``case["relu"]`` also
+    every ReLU input of the step (``relu_inputs``, in first-seen order,
+    numpy) beside the valid rows of the BatchNorm call that produced it
+    (``relu_valid``, None for dense maps); with ``case["pinned"]`` (per
+    ReLU call, the whole batch's boolean mask and its count of valid rows,
+    ``pinned_to_rank``) each ReLU passes its input where the mask is True
+    instead of where the input is positive."""
     cfg = case["cfg"]
     model = build_model(cfg["model"], device=device, train=True)
     load_jax_variables(model, case["variables"])
     opt, _ = build_optimizer(cfg, case["steps_per_epoch"], list(model.parameters()))
-    scalars, logs = train_step(model, opt, batch_to_device(split_batch(case["batch"], world)[rank], device),
-                               accum_steps=case.get("accum_steps", 1))
-    return {"loss": scalars["loss"].cpu(), "grad_norm": scalars["grad_norm"].cpu(),
-            "logs": [{k: v.cpu() for k, v in log.items()} for log in logs],
-            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
-            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+    batch = batch_to_device(split_batch(case["batch"], world)[rank], device)
+    pin = pinned_to_rank(case["pinned"], rank, world) if case.get("pinned") else None
+    with recorded_relus(pin) if case.get("relu") else contextlib.nullcontext() as relus:
+        scalars, logs = train_step(model, opt, batch, accum_steps=case.get("accum_steps", 1))
+    out = {"loss": scalars["loss"].cpu(), "grad_norm": scalars["grad_norm"].cpu(),
+           "logs": [{k: v.cpu() for k, v in log.items()} for log in logs],
+           "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+           "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+    if relus is not None:
+        out["relu_inputs"], out["relu_valid"] = relus
+    return out
+
+
+def rank_share(a: np.ndarray, n_global: int | None, valid, rank: int, world: int) -> np.ndarray:
+    """A ReLU input (or mask) ``a`` of the whole batch, cut to rank
+    ``rank``'s share in the rank's layout: a dense map (``valid`` None)
+    holds the samples along its first dim; a compact table or the sorted
+    points hold the batch's ``n_global`` valid rows first, sample by
+    sample, and a rank's own valid rows (``valid``) are a prefix of its
+    table: rank 0's are the batch's first rows, the last rank's its last
+    valid rows (two ranks; rows past the valid ones are zero)."""
+    if world > 2:
+        raise ValueError("ReLU inputs are cut for at most two ranks")
+    if valid is None:
+        b = a.shape[0] // world
+        return a[rank * b:(rank + 1) * b]
+    n = int(valid.sum())
+    if not valid[:n].all():
+        raise ValueError("the valid rows are not a prefix of the table")
+    offset = 0 if rank == 0 else n_global - n
+    out = np.zeros(valid.shape + a.shape[1:], a.dtype)
+    out[:n] = a[offset:offset + n]
+    return out
+
+
+def pinned_to_rank(pinned: list, rank: int, world: int):
+    """``pin(call, valid)`` for ``recorded_relus``: ReLU call ``call``'s
+    mask of the whole batch, ``pinned[call] = (mask, valid rows of the
+    batch)``, cut to this rank's share (``rank_share``)."""
+    return lambda call, valid: rank_share(*pinned[call], valid, rank, world)
+
+
+@contextlib.contextmanager
+def recorded_relus(pin=None):
+    """Inside the block, ``torch.relu`` records each input the first time
+    it sees it, with the ``valid`` rows of the last ``BatchNorm`` call when
+    they match its rows (a compact table's or the sorted points'), and
+    with ``pin`` passes the input where ``pin(call, valid)`` is True.
+    Yields ([inputs], [valid rows or None]) as numpy arrays, filled as
+    the block runs."""
+    relu, bn_forward = torch.relu, BatchNorm.forward
+    inputs, valids, index, last_valid = [], [], {}, [None]
+
+    def bn(self, x, channel_dim=1, valid=None):
+        last_valid[0] = valid
+        return bn_forward(self, x, channel_dim=channel_dim, valid=valid)
+
+    def hooked(x):
+        key = (tuple(x.shape), x.detach().cpu().numpy().tobytes())
+        if key not in index:
+            index[key] = len(inputs)
+            inputs.append(x.detach().cpu().numpy().copy())
+            v = last_valid[0]
+            valids.append(None if v is None or v.shape[0] != x.shape[0] else v.cpu().numpy().copy())
+        if pin is None:
+            return relu(x)
+        i = index[key]
+        return torch.where(torch.from_numpy(pin(i, valids[i])).to(x.device), x, 0.0)
+
+    torch.relu, BatchNorm.forward = hooked, bn
+    try:
+        yield inputs, valids
+    finally:
+        torch.relu, BatchNorm.forward = relu, bn_forward
 
 
 def bn_case(case: dict, rank: int, device) -> dict:
