@@ -64,6 +64,24 @@ width, random weights from a seed:
   JAX's multi-device bars, then 3 timed bf16 steps a rank (step ms, the
   all-reduce's bytes and ms, peak memory a rank, launches);
 - ddp_nccl: one rank over NCCL, three bf16 steps through the same code;
+- serving_tile, serving_leading_down, serving_all, serving_packed,
+  serving_dense_first, serving_unmasked, serving_dense_image: the
+  flagship's other backbone stage modes (models/resnet.py), one override
+  of its YAML each (``SERVING_MODES``), served like the serving path: the
+  tile stack (the tile capacity following the bucket, the full tile grid
+  at the largest), the sparse first strided stage, the all-sparse
+  backbone, the packed densify and 2x2 down conv, the dense-first and
+  the unmasked tails, and the dense-image strides [2, 2, 2, 1]; the five
+  exact on the active set hold their f32 backbone output against the
+  leading path's within 1e-3, the other two their f32 BEV bit-identical
+  between the kernels and their plain versions, and each reports its bf16
+  detections' matched fraction against leading's;
+- train_tile_stride1, train_tile, train_leading, train_leading_down,
+  train_force_dense, train_dense_image: the same in training
+  (``TRAIN_MODES``), B = 4, ``MODE_TRAIN_STEPS`` steps through the
+  Trainer, each table and tile map beside its rows; an f32
+  ``tile_stride1`` step's BEV bit-identical between the kernels and their
+  plain versions;
 
 then holds each kernel against its plain PyTorch version at the shapes
 those paths give it.  Kernel 3 (``sorted_segment_bcast``) also carries
@@ -131,6 +149,28 @@ WAYMO_FRAMES = 8  # train and val frames of the CLIs' Waymo tree
 NLZ_WEDGE_RAD = 0.2  # azimuth wedge of a Waymo frame flagged as a no-label zone
 NLZ_INTENSITY = -1.0  # the flagged points' intensity: no unflagged point has it (tanh of 0..255 / 128)
 POINTS_PER_SURFACE = 40  # the CLIs' scenes: ~55k occupied pillars a 300k-point frame
+# the flagship's backbone stage modes (models/resnet.py), one override of
+# its YAML each: served, and trained
+SERVING_MODES = {
+    "serving_tile": "+model.backbone.sparse_stages_eval=tile",
+    "serving_leading_down": "+model.backbone.sparse_stages_eval=leading+down",
+    "serving_all": "+model.backbone.sparse_stages_eval=all",
+    "serving_packed": "+model.backbone.packed_downsample=true",
+    "serving_dense_first": "+model.backbone.sparse_eval=false",
+    "serving_unmasked": "model.backbone.masked_eval=false",
+    "serving_dense_image": "model.backbone.ds_layer_strides=[2,2,2,1]",
+}
+# exact on the active set: their f32 backbone output is held against leading's
+EXACT_MODES = ("serving_tile", "serving_leading_down", "serving_all", "serving_packed", "serving_dense_first")
+TRAIN_MODES = {
+    "train_tile_stride1": "+model.backbone.tile_stride1=true",
+    "train_tile": "+model.backbone.sparse_stages_train=tile",
+    "train_leading": "+model.backbone.sparse_stages_train=leading",
+    "train_leading_down": "+model.backbone.sparse_stages_train=leading+down",
+    "train_force_dense": "+model.backbone.force_dense_train=true",
+    "train_dense_image": "model.backbone.ds_layer_strides=[2,2,2,1]",
+}
+MODE_TRAIN_STEPS = 4  # the first step, then 3 timed
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
 
@@ -625,11 +665,13 @@ def span_timer(spans: dict):
             h.remove()
 
 
-def layer_breakdown(model, points, mask, capacity):
-    """CUDA-synchronised host time of each layer of one predict (ms); an
-    MVF reader also split into its views (each view's dense tower apart)
-    and its point-wise MLPs."""
+def layer_breakdown(model, points, mask, capacity, max_bucket=None):
+    """CUDA-synchronised host time of each layer of one predict (ms) at the
+    bucket ``capacity`` (the largest bucket ``max_bucket``); an MVF reader
+    also split into its views (each view's dense tower apart) and its
+    point-wise MLPs."""
     from pillarnext_tpu_torch.core import nms
+    from pillarnext_tpu_torch.serving import tile_kwargs
 
     nms_ms = []
     rotated_nms = nms.rotated_nms
@@ -660,7 +702,8 @@ def layer_breakdown(model, points, mask, capacity):
             x, reader_ms = synced_ms(lambda: model.reader(points, mask, capacity=capacity, telemetry=tel))
         backbone_ms = None
         if model.backbone is not None:
-            x, backbone_ms = synced_ms(lambda: model.backbone(x))
+            tiles = tile_kwargs(model, capacity, capacity if max_bucket is None else max_bucket)
+            x, backbone_ms = synced_ms(lambda: model.backbone(x, **tiles))
         x, neck_ms = synced_ms(lambda: model.neck(x))
         nms.rotated_nms = timed_nms
         try:
@@ -809,10 +852,12 @@ def kernel_counters():
     return pfn_two_layer, monotone_row_gather, sorted_segment_bcast
 
 
-def table_report(model, tel: dict, bucket: int, batch: int = 1) -> dict:
+def table_report(model, tel: dict, bucket: int, batch: int = 1, tiles: int | None = None) -> dict:
     """Each compact table of a predict or a train step: its active count
-    beside its rows.  Pillar reader: the pillar table, and in training each
-    strided stage's sites; MVF: the pillar and the cylinder tables;
+    beside its rows.  Pillar reader: the pillar table, each strided stage's
+    sites where the mode has their table, and each tile map's active tiles
+    beside its slots (``tiles``: the tile capacity the call ran at, the
+    backbone's own by default); MVF: the pillar and the cylinder tables;
     voxel18: the reader's voxels and each strided stage's sites."""
     reader = model.reader
     kind = type(reader).__name__
@@ -826,9 +871,16 @@ def table_report(model, tel: dict, bucket: int, batch: int = 1) -> dict:
                 "cylinder": min(reader.cylinder_capacity * batch, reader.cylinder_grid.num_pillars * batch)}
     else:
         caps = {"pillar": min(bucket * batch, reader.grid.num_pillars * batch)}
-        if "stage1_active" in tel:  # the all-sparse training backbone (models/resnet.py)
-            spatial = (reader.grid.size_y, reader.grid.size_x)
-            caps.update(model.backbone.table_capacities(caps["pillar"], batch, spatial))
+        bb, spatial = model.backbone, (reader.grid.size_y, reader.grid.size_x)
+        caps.update({name: c for name, c in bb.table_capacities(caps["pillar"], batch, spatial).items()
+                     if f"{name}_active" in tel})
+        for key in tel:
+            if "_tiles" in key and key.endswith("_active"):  # models/resnet.py _tile_map_for
+                name = key[:-len("_active")]
+                tag, h = name.split("_tiles")
+                frac = 1.0 if tag == "prefix" else float(bb.stage_capacity_frac[int(tag[len("stage"):])])
+                grid = (int(h), int(h) * spatial[1] // spatial[0])
+                caps[name] = bb.tile_slots(bb.tile_capacity if tiles is None else tiles, batch, grid, frac)
     return {name: {"active": int(tel[f"{name}_active"]), "capacity": c,
                    "overflow": int(tel[f"{name}_overflow"])} for name, c in caps.items()}
 
@@ -839,7 +891,7 @@ def serving_path(path: str, model_cfg, model, device, required: tuple):
     whether it was repaired and each table's active count beside its rows;
     the latency median, a breakdown, peak memory and the launches; fails
     unless every kernel in ``required`` launched."""
-    from pillarnext_tpu_torch.serving import AdaptivePredictor
+    from pillarnext_tpu_torch.serving import AdaptivePredictor, tile_kwargs
 
     pc_range = model_cfg["reader"]["pc_range"]
     engine = AdaptivePredictor(model)
@@ -862,12 +914,12 @@ def serving_path(path: str, model_cfg, model, device, required: tuple):
                 raise AssertionError(f"{path}: {key} has shape {tuple(out[key].shape)}, expected (1, {d}, ...)")
         if not (torch.isfinite(out["box3d_lidar"]).all() and torch.isfinite(out["scores"]).all()):
             raise AssertionError(f"{path}: non-finite detections for frame seed {seed}")
-        tel = {}
+        tel, tiles = {}, tile_kwargs(model, bucket, engine.buckets[-1])
         with torch.inference_mode():
-            model.predict(p, m, capacity=bucket, telemetry=tel)
+            model.predict(p, m, capacity=bucket, telemetry=tel, **tiles)
         per_frame.append({"seed": seed, "points": int(m.sum()), "valid": int(out["valid"].sum()),
                           "bucket": bucket, "repaired": engine.repaired > repaired,
-                          "tables": table_report(model, tel, bucket)})
+                          "tables": table_report(model, tel, bucket, tiles=tiles.get("tile_capacity"))})
     latencies = []
     for _ in range(LATENCY_FRAMES):
         torch.cuda.synchronize()
@@ -881,7 +933,7 @@ def serving_path(path: str, model_cfg, model, device, required: tuple):
           "peak_required": engine.peak_required, "repaired": engine.repaired,
           "latency_ms_median": statistics.median(latencies), "latency_ms": latencies,
           "launches": launches,
-          "breakdown_ms": layer_breakdown(model, *frames[0], engine._operating_bucket()),
+          "breakdown_ms": layer_breakdown(model, *frames[0], engine._operating_bucket(), engine.buckets[-1]),
           "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20})
     for name in required:
         if launches[name] == 0:
@@ -970,7 +1022,7 @@ def train_path(cfg, batches, device, work_dir, path: str, required: tuple):
     rec["breakdown_ms"] = train_breakdown(model, opt, batches[0], device)
     rec["profile"] = profile_train_steps(model, opt, batches, device)
     emit(rec)
-    if len(losses) < TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+    if len(losses) < len(batches) or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{path} path losses: {losses}")
     for name in required:
         if launches[name] == 0:
@@ -978,15 +1030,15 @@ def train_path(cfg, batches, device, work_dir, path: str, required: tuple):
     return model, launches
 
 
-def f32_train_kernels_vs_plain(cfg, batch, device, phase: str):
+def f32_train_kernels_vs_plain(cfg, batch, device, phase: str, check_bev: bool = False):
     """One f32 train step with the kernels and one with their plain
     versions, same weights and batch, PyTorch's deterministic algorithms
     on.  Kernel 3's max and kernel 2's gathers are exact and the segment
     sums run the same way on both routes, so the losses agree to 1e-6
     relative; the gradients differ by kernel 3's ``sum`` order in the
     flagship PFN's backward: each tensor within 1e-3 of its largest
-    magnitude.  For voxel18 the backbone's output in train mode must also
-    be bit-identical on both routes."""
+    magnitude.  For voxel18 (and with ``check_bev``) the backbone's output
+    in train mode must also be bit-identical on both routes."""
     from pillarnext_tpu_torch.models.voxel_encoder import VoxelFeatureNet
     from pillarnext_tpu_torch.train.train_state import train_step
     from pillarnext_tpu_torch.train.trainer import batch_to_device
@@ -1000,7 +1052,7 @@ def f32_train_kernels_vs_plain(cfg, batch, device, phase: str):
     try:
         for plain in (False, True):
             model = build_model(cfg32, device=device, generator=torch.Generator().manual_seed(0), train=True)
-            if isinstance(model.reader, VoxelFeatureNet) and not plain:
+            if (check_bev or isinstance(model.reader, VoxelFeatureNet)) and not plain:
                 with torch.no_grad(), model.precision():
                     sb = model.reader(ex["points"], ex["points_mask"])
                     bev, bev_plain = model.backbone(sb), model.backbone(sb, plain=True)
@@ -1052,6 +1104,126 @@ def bf16_train_repeat(cfg, batch, device, phase: str):
     emit(rec)
     if differing:
         raise AssertionError(f"two bf16 train steps differ: {rec}")
+
+
+@contextlib.contextmanager
+def launches_through(module, name: str, kernel):
+    """Inside the block, the yielded list's one entry counts the launches
+    of ``kernel`` (a wrapper with a ``launches`` counter) made by calls
+    through ``module.name``: the tile gathers' share of kernel 2."""
+    real, count = getattr(module, name), [0]
+
+    def counting(*args):
+        before = kernel.launches
+        out = real(*args)
+        count[0] += kernel.launches - before
+        return out
+
+    setattr(module, name, counting)
+    try:
+        yield count
+    finally:
+        setattr(module, name, real)
+
+
+def f32_agreement(bev: torch.Tensor, ref: torch.Tensor) -> dict:
+    """How far an f32 backbone output lies from the leading path's at the
+    same weights: within ``atol = rtol = 1e-3`` elementwise or not."""
+    diff = (bev - ref).abs()
+    excess = diff - 1e-3 * ref.abs()
+    return {"f32_bev_max_abs_diff": float(diff.max()), "f32_bev_max_excess_over_rtol": float(excess.max()),
+            "f32_bev_within_1e3": bool((excess <= 1e-3).all()),
+            "tolerance": "f32 backbone output vs leading: atol = rtol = 1e-3"}
+
+
+def backbone_bev(model, points, mask, plain: bool = False) -> torch.Tensor:
+    """The backbone's output of one eval frame (the reader's table or image
+    through the backbone), under the model's precision."""
+    with torch.inference_mode(), model.precision():
+        return model.backbone(model.reader(points, mask, plain=plain), plain=plain)
+
+
+def serving_modes(device) -> dict:
+    """The flagship as its YAML gives it with one backbone override each
+    (``SERVING_MODES``), served bf16 at batch 1 through AdaptivePredictor
+    (``serving_path``: frames, buckets, tables and tiles, the median,
+    breakdown, launches), each path failing unless kernels 1-3 launched
+    and, on the tile paths, unless the tile gathers launched kernel 2.
+    Then, against the default ``leading`` path at the same weights: the
+    bf16 detections' matched fraction, and for the modes exact on the
+    active set (``EXACT_MODES``) the f32 backbone output within ``atol =
+    rtol = 1e-3``; the other two modes' f32 BEV must be bit-identical
+    between the kernels and their plain versions.  Returns each path's
+    model (profiled in the last phase) and launches."""
+    from pillarnext_tpu_torch.ops import gather, tile_subm
+    from pillarnext_tpu_torch.serving import tile_kwargs
+    from pillarnext_tpu_torch.utils.builders import build_model
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    base = load_experiment(FLAGSHIP)["model"]
+    points, mask = frame(base["reader"]["pc_range"], 0, device)
+    lead16 = build_model(base, device=device, generator=torch.Generator().manual_seed(0))
+    lead32 = build_model(dict(base, dtype="float32"), device=device, generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        lead_dets = lead16.predict(points, mask)
+    lead_bev = backbone_bev(lead32, points, mask)
+    del lead16, lead32
+    out = {}
+    for path, override in SERVING_MODES.items():
+        mcfg = load_experiment(FLAGSHIP, [override])["model"]
+        model = build_model(mcfg, device=device, generator=torch.Generator().manual_seed(0))
+        with launches_through(tile_subm, "monotone_row_gather", gather.monotone_row_gather) as tile_launches:
+            _, launches = serving_path(path, mcfg, model, device, KERNELS)
+        rec = {"phase": f"{path}_vs_leading", "override": override, "tile_gather_launches": tile_launches[0]}
+        with torch.inference_mode():
+            dets = model.predict(points, mask, **tile_kwargs(model, model.reader.capacity, model.reader.capacity))
+        rec["bf16_valid"] = [int(dets["valid"][0].sum()), int(lead_dets["valid"][0].sum())]
+        rec["bf16_matched_fraction_vs_leading"] = matched_fraction(dets, lead_dets)
+        if path in EXACT_MODES:
+            m32 = build_model(dict(mcfg, dtype="float32"), device=device, generator=torch.Generator().manual_seed(0))
+            rec.update(f32_agreement(backbone_bev(m32, points, mask), lead_bev))
+            del m32
+        emit(rec)
+        if path in EXACT_MODES and not rec["f32_bev_within_1e3"]:
+            raise AssertionError(f"{path}: the f32 backbone output differs from the leading path's: {rec}")
+        if "tile" in path and tile_launches[0] == 0:
+            raise AssertionError(f"the {path} path never launched kernel 2 through the tile gathers")
+        if path not in EXACT_MODES:
+            f32_bev_kernels_vs_plain(f"{path}_f32_kernels_vs_plain", mcfg, points, mask, device)
+        out[path] = {"model": model, "launches": launches}
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_modes(batches, device) -> dict:
+    """The flagship as its YAML gives it with one backbone override each
+    (``TRAIN_MODES``), trained bf16 at B = 4 through the Trainer for
+    ``MODE_TRAIN_STEPS`` steps (``train_path``: step times, peak memory,
+    each table's and tile map's active count beside its rows, a breakdown
+    and a 2-step device profile), each path failing unless kernels 2 and 3
+    launched (and the tile gathers, on the tile paths) and no table
+    overflowed; then one f32 ``tile_stride1`` step whose train-mode BEV
+    must be bit-identical between the kernels and their plain versions.
+    Returns each path's launches."""
+    from pillarnext_tpu_torch.ops import gather, tile_subm
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    out = {}
+    for path, override in TRAIN_MODES.items():
+        mcfg = load_experiment(FLAGSHIP, [override])
+        with (tempfile.TemporaryDirectory(dir=REPO) as work_dir,
+              launches_through(tile_subm, "monotone_row_gather", gather.monotone_row_gather) as tile_launches):
+            model, out[path] = train_path(mcfg, batches[:MODE_TRAIN_STEPS], device, work_dir, path, KERNELS[1:])
+        emit({"phase": f"{path}_tile_gathers", "override": override, "tile_gather_launches": tile_launches[0]})
+        if "tile" in path and tile_launches[0] == 0:
+            raise AssertionError(f"the {path} path never launched kernel 2 through the tile gathers")
+        del model
+        torch.cuda.empty_cache()
+        if path == "train_tile_stride1":
+            f32_train_kernels_vs_plain(mcfg, batches[0], device, "tile_stride1_f32_train_kernels_vs_plain",
+                                       check_bev=True)
+            torch.cuda.empty_cache()
+    return out
 
 
 def write_nuscenes_tree(root: Path, pc_range, class_names: list, seed: int) -> dict:
@@ -1839,7 +2011,8 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; a CUDA GPU is required")
     sys.path.insert(0, str(REPO))
     from pillarnext_tpu_torch.data.synthetic import synthetic_batches
-    from pillarnext_tpu_torch.ops import kernels
+    from pillarnext_tpu_torch.ops import kernels, tile_subm
+    from pillarnext_tpu_torch.serving import tile_kwargs
     from pillarnext_tpu_torch.utils.builders import build_model
     from pillarnext_tpu_torch.utils.config import load_experiment
 
@@ -1940,6 +2113,11 @@ def main() -> None:
         del wmodel, wframes
         torch.cuda.empty_cache()
 
+    # phase 5c: the flagship's other backbone stage modes, served bf16 at
+    # batch 1, each against the leading path (f32 backbone output, bf16
+    # detections) or its own plain kernels (f32 BEV)
+    modes = serving_modes(device)
+
     # phase 6: the training main path, bf16, B = 4, through the Trainer
     # (its checkpoint goes to a directory of the checkout that is removed)
     with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
@@ -1950,6 +2128,10 @@ def main() -> None:
 
     # phase 7: f32 train step, kernels vs plain versions
     f32_train_kernels_vs_plain(cfg, batches[0], device, "f32_train_kernels_vs_plain")
+
+    # phase 7b: the flagship's other backbone stage modes in training, bf16,
+    # B = 4, through the Trainer; an f32 tile_stride1 step, kernels vs plain
+    train_mode_launches = train_modes(batches, device)
 
     # phase 8: voxel18 training, bf16, B = 4 at the config's grid, through
     # the Trainer; then an f32 step, kernels vs plain versions
@@ -2033,6 +2215,15 @@ def main() -> None:
     for w in waymo.values():
         train_cases += w.pop("gathers")
         sum_cases += w.pop("sums")
+    # kernel 2's tile gathers in a serving_tile predict at the largest
+    # bucket (the full tile grid): the pack, the first halo, the stack-to-dense
+    tile_model = modes["serving_tile"]["model"]
+    with torch.inference_mode(), captured(tile_subm, "monotone_row_gather") as calls:
+        tile_model.predict(points, mask, **tile_kwargs(tile_model, tile_model.reader.capacity,
+                                                       tile_model.reader.capacity))
+    train_cases += [(name, *calls[i]) for name, i in
+                    (("tile_pack", 0), ("tile_halo", 1), ("tile_stack_to_dense", -1))]
+    del calls, tile_model
     train_cases += waymo_gathers
     sum_cases += waymo_segs
     del waymo_gathers, waymo_segs
@@ -2060,16 +2251,19 @@ def main() -> None:
     profiled = [("serving", model, (points, mask)), ("serving_voxel18", vmodel, (vpoints, vmask))]
     profiled += [(path, serving_model(w["cfg"]["model"], device), frame(w["cfg"]["model"]["reader"]["pc_range"], 0, device))
                  for path, w in waymo.items()]
+    profiled += [(path, w.pop("model"), (points, mask)) for path, w in modes.items()]
     with torch.inference_mode():
         for path, mdl, (p, m) in profiled:
-            mdl.predict(p, m)
+            # a tile backbone at the largest bucket runs the full tile grid, as serving does
+            tiles = tile_kwargs(mdl, mdl.reader.capacity, mdl.reader.capacity)
+            mdl.predict(p, m, **tiles)
 
-            def reader_and_backbone(mdl=mdl, p=p, m=m):
+            def reader_and_backbone(mdl=mdl, p=p, m=m, tiles=tiles):
                 x = mdl.reader(p, m)
-                return x if mdl.backbone is None else mdl.backbone(x)
+                return x if mdl.backbone is None else mdl.backbone(x, **tiles)
 
             emit({"phase": "frame_profile", "path": path,
-                  "predict": profile_device(lambda: mdl.predict(p, m), 3),
+                  "predict": profile_device(lambda: mdl.predict(p, m, **tiles), 3),
                   "reader_and_backbone": profile_device(reader_and_backbone, 3)})
     del profiled, vmodel, vpoints, vmask
 
@@ -2092,7 +2286,8 @@ def main() -> None:
              "train": train_launches, "train_voxel18": vtrain_launches, **wtrain,
              "cli_train": cli_train_launches, "cli_test": cli_test_launches,
              "cli_train_ddp": cli_ddp_launches, "cli_waymo": cli_waymo_launches,
-             "cli_waymo_test": cli_waymo_test_launches, "ddp_train": ddp_launches, "ddp_nccl": nccl_launches}
+             "cli_waymo_test": cli_waymo_test_launches, "ddp_train": ddp_launches, "ddp_nccl": nccl_launches,
+             **{path: w["launches"] for path, w in modes.items()}, **train_mode_launches}
     by_path = {k: {p: n[k] for p, n in paths.items()} for k in KERNELS}
     cases = records["gather_cases"]
     kernels_line = [
@@ -2104,8 +2299,10 @@ def main() -> None:
              cases={case: summary(rec) for case, rec in cases.items()}),
         line("sorted_segment_bcast", records["sorted_segment_bcast"], "cuda", "pillarnext_tpu_torch/csrc/segscan.cu",
              "pillarnext_tpu/ops/pallas_segscan.py:124", by_path["sorted_segment_bcast"],
-             launches_per_train_step={p: by_path["sorted_segment_bcast"][p] / TRAIN_STEPS
-                                      for p in ("train", "train_voxel18", *wtrain)},
+             launches_per_train_step={**{p: by_path["sorted_segment_bcast"][p] / TRAIN_STEPS
+                                         for p in ("train", "train_voxel18", *wtrain)},
+                                      **{p: n["sorted_segment_bcast"] / MODE_TRAIN_STEPS
+                                         for p, n in train_mode_launches.items()}},
              device_launches_per_call=records["sorted_segment_bcast"]["device_launches_per_call"],
              segment_sums={case: summary(rec) for case, rec in records["segment_sums"].items()},
              max_broadcasts={case: summary(rec) for case, rec in records["max_broadcasts"].items()}),

@@ -59,14 +59,16 @@ class SingleStageDetector(nn.Module):
             return full_f32()
         return contextlib.nullcontext()
 
-    def extract_feat(self, points, mask, capacity=None, telemetry=None, plain=False):
+    def extract_feat(self, points, mask, capacity=None, telemetry=None, plain=False, tile_capacity=None):
         """(B, N, D) points + (B, N) mask -> NHWC features.  ``capacity``
-        overrides the reader's table capacity; ``telemetry`` (a dict)
-        collects the reader's device-side counters; ``plain`` keeps CUDA
-        tensors on the kernels' plain versions."""
+        overrides the reader's table capacity and ``tile_capacity`` the
+        2-D backbone's (serving's buckets); ``telemetry`` (a dict) collects
+        the device-side counters; ``plain`` keeps CUDA tensors on the
+        kernels' plain versions."""
         x = self.reader(points, mask, capacity=capacity, telemetry=telemetry, plain=plain)
         if self.backbone is not None:
-            x = self.backbone(x, plain=plain, telemetry=telemetry)
+            extra = {} if tile_capacity is None else {"tile_capacity": tile_capacity}
+            x = self.backbone(x, plain=plain, telemetry=telemetry, **extra)
         if self.neck is not None:
             x = self.neck(x)
         return x
@@ -87,12 +89,12 @@ class SingleStageDetector(nn.Module):
             preds = self(example["points"], example["points_mask"], telemetry=telemetry, plain=plain)
             return self.head.loss(example, preds)
 
-    def predict(self, points, mask, capacity=None, telemetry=None, plain=False):
+    def predict(self, points, mask, capacity=None, telemetry=None, plain=False, tile_capacity=None):
         """Fixed-size detections: box3d_lidar (B, D, 9), scores, label_preds,
         valid (B, D)."""
         cfg = self.post_processing
         with self.precision():
-            x = self.extract_feat(points, mask, capacity, telemetry, plain)
+            x = self.extract_feat(points, mask, capacity, telemetry, plain, tile_capacity)
             if cfg.get("candidate_sparse_head", False):
                 return self.head(x, test_cfg=cfg)
             return self.head.predict(self.head(x), cfg)

@@ -136,11 +136,12 @@ def statistics_frozen(module: nn.Module):
             m.update_statistics = True
 
 
-def recomputed(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``block(x)`` that keeps only ``x`` for the backward and runs the
-    block again there (``torch.utils.checkpoint``, non-reentrant), with
-    its BatchNorm statistics updated once, by the first pass."""
-    return checkpoint(block, x, use_reentrant=False,
+def recomputed(block: nn.Module, *args) -> torch.Tensor:
+    """``block(*args)`` that keeps only its inputs for the backward and
+    runs the block again there (``torch.utils.checkpoint``,
+    non-reentrant), with its BatchNorm statistics updated once, by the
+    first pass."""
+    return checkpoint(block, *args, use_reentrant=False,
                       context_fn=lambda: (contextlib.nullcontext(), statistics_frozen(block)))
 
 
@@ -152,10 +153,37 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     )
 
 
+def packed_down_weight(weight: torch.Tensor) -> torch.Tensor:
+    """A stride-2 3x3 conv's weight (O, I, 3, 3) as the 2x2 conv over a
+    2x2-packed input (O, 4I, 2, 2), packed channel ``(dy * 2 + dx) * I +
+    c`` (layers.py:29-65): tap (a, b) reads input row 2y + a - 1, which
+    lies in packed row y - 1 at dy = 1 for a = 0 and in packed row y at
+    dy = a - 1 otherwise (columns alike)."""
+    o, i = weight.shape[:2]
+    k2 = weight.new_zeros((o, 2, 2, 4, i))  # (O, ka, kb, dy * 2 + dx, I)
+    for a in range(3):
+        ka, dy = (0, 1) if a == 0 else (1, a - 1)
+        for b in range(3):
+            kb, dx = (0, 1) if b == 0 else (1, b - 1)
+            k2[:, ka, kb, dy * 2 + dx] = weight[:, :, a, b]
+    return k2.reshape(o, 2, 2, 4 * i).permute(0, 3, 1, 2)
+
+
+def packed_down_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """``conv`` (3x3, stride 2, padding 1) of an image given 2x2-packed,
+    (B, 4C, H/2, W/2): the 2x2 conv of ``packed_down_weight`` with padding
+    1 before and 0 after each axis, the same sums as the strided conv."""
+    w = packed_down_weight(conv.weight).to(x.dtype)
+    return F.conv2d(F.pad(x, (1, 0, 1, 0)), w)
+
+
 class ConvBlock(nn.Module):
     """Conv (no bias) + BN + ReLU with symmetric padding ``k // 2 *
-    dilation`` (layers.py:68-125); with ``mask`` (B, 1, H, W) the output is
-    re-zeroed outside the active set."""
+    dilation`` (layers.py:68-125); with ``mask`` (B, 1, H, W) the training
+    statistics are those of the active cells (``MaskedBatchNorm``) and the
+    output is re-zeroed outside the active set.  ``forward(...,
+    packed=True)`` takes the input 2x2-packed and runs a stride-2 3x3 conv
+    as ``packed_down_conv`` (the same ``conv.weight``)."""
 
     def __init__(self, in_ch, out_ch, kernel_size=3, stride=1, dilation=1, eps=BN_EPS_DENSE,
                  momentum=BN_MOMENTUM_DENSE):
@@ -166,13 +194,20 @@ class ConvBlock(nn.Module):
         )
         self.norm = BatchNorm(out_ch, eps, momentum)
 
-    def forward(self, x, mask=None):
-        x = torch.relu(self.norm(conv2d(x, self.conv)))
+    def forward(self, x, mask=None, packed: bool = False):
+        if packed:
+            if self.conv.kernel_size != (3, 3) or self.conv.stride != (2, 2) or self.conv.dilation != (1, 1):
+                raise ValueError("a packed input takes a 3x3 stride-2 conv")
+            y = packed_down_conv(x, self.conv)
+        else:
+            y = conv2d(x, self.conv)
+        x = torch.relu(self.norm(y, valid=mask))
         return x if mask is None else x * mask
 
 
 class ResidualBlock(nn.Module):
-    """conv+BN+ReLU -> conv+BN -> +identity -> ReLU (layers.py:128-174)."""
+    """conv+BN+ReLU -> conv+BN -> +identity -> ReLU (layers.py:128-174);
+    ``mask`` as in ConvBlock."""
 
     def __init__(self, ch, kernel_size=3, eps=BN_EPS_SPARSE, momentum=BN_MOMENTUM_SPARSE):
         super().__init__()
@@ -181,7 +216,7 @@ class ResidualBlock(nn.Module):
         self.norm2 = BatchNorm(ch, eps, momentum)
 
     def forward(self, x, mask=None):
-        y = self.norm2(conv2d(self.block1(x, mask), self.conv2))
+        y = self.norm2(conv2d(self.block1(x, mask), self.conv2), valid=mask)
         y = torch.relu(y + x)
         return y if mask is None else y * mask
 

@@ -10,6 +10,7 @@ import dataclasses
 import torch
 
 from pillarnext_tpu_torch.ops.densify import densify
+from pillarnext_tpu_torch.ops.gather import monotone_row_gather, monotone_row_gather_plain
 
 
 @dataclasses.dataclass
@@ -36,3 +37,19 @@ class SparseBEV:
         kernel 2 on a CUDA tensor unless ``plain``."""
         dense = densify(self.table, self.slot_of_dense, self.slot_id, plain=plain)
         return dense.reshape(self.batch, *self.spatial, self.table.shape[-1])
+
+    def to_dense_packed(self, plain: bool = False) -> torch.Tensor:
+        """Eval only: (B, H/2, W/2, 4C) with each 2x2 cell packed into the
+        channels, ``q = (dy * 2 + dx) * C + c`` (sparse_bev.py:45-69), the
+        input ``layers.packed_down_conv`` takes.  One row gather (kernel 2
+        on a CUDA tensor unless ``plain``) in the interleaved index order
+        ``idx[b, Y, X, dy, dx] = slot_of_dense[b, 2Y + dy, 2X + dx]``; the
+        dump slot reads zeros.  It has no backward."""
+        b, (h, w) = self.batch, self.spatial
+        if h % 2 or w % 2:
+            raise ValueError(f"a packed densify needs an even grid, got {(h, w)}")
+        c = self.table.shape[-1]
+        idx = (self.slot_of_dense.reshape(b, h // 2, 2, w // 2, 2)
+               .permute(0, 1, 3, 2, 4).reshape(-1).contiguous())
+        gather = monotone_row_gather_plain if plain else monotone_row_gather
+        return gather(self.table[:-1].detach(), idx).reshape(b, h // 2, w // 2, 4 * c)

@@ -1,8 +1,12 @@
 """Optimistic bucketed-capacity inference.
 
-Counterpart of ``AdaptivePredictor`` (pillarnext_tpu/serving.py:62-270)
-without its tile-capacity branches.  A bucket is the capacity argument of
-the reader's compact table, so a bucket costs nothing to add.  Each frame
+Counterpart of ``AdaptivePredictor`` (pillarnext_tpu/serving.py:62-270).
+A bucket is the capacity argument of the reader's compact table, so a
+bucket costs nothing to add.  A 2-D backbone that runs over tile stacks
+gets the tile capacity of each bucket with it
+(``SparseResNet.tile_capacity_for``, JAX serving.py:119-136): its own
+scaled by the bucket below the largest bucket, the full tile grid at the
+largest, so that a repair there is exact for the tiles too.  Each frame
 is dispatched at the operating bucket; its overflow telemetry comes back
 with the detections as device scalars, and ``resolve`` reads all of a
 batch's counters in one transfer.  A frame's overflow is the sum of every
@@ -27,6 +31,16 @@ import dataclasses
 from typing import Any, Sequence
 
 import torch
+
+
+def tile_kwargs(model, bucket: int, max_bucket: int) -> dict:
+    """``{"tile_capacity": ...}`` for a predict at ``bucket`` when the
+    model's backbone runs over tile stacks (``SparseResNet.uses_tiles``),
+    else ``{}``."""
+    backbone = getattr(model, "backbone", None)
+    if getattr(backbone, "uses_tiles", False):
+        return {"tile_capacity": backbone.tile_capacity_for(bucket, max_bucket)}
+    return {}
 
 
 def _round_cap(c: int, quantum: int = 4096) -> int:
@@ -70,8 +84,11 @@ class AdaptivePredictor:
     def _run(self, bucket: int, points, mask):
         tel: dict = {}
         with torch.inference_mode():
-            out = self.model.predict(points, mask, capacity=bucket, telemetry=tel)
+            out = self.model.predict(points, mask, capacity=bucket, telemetry=tel,
+                                     **tile_kwargs(self.model, bucket, self.buckets[-1]))
         overflow = sum(v for k, v in tel.items() if "overflow" in k)
+        # the reader's count only: the bucket sizes the reader's table, not
+        # the stage tables or the tile maps
         active = sum(v for k, v in tel.items() if k in ("pillar_active", "voxel_active"))
         return out, overflow, active
 

@@ -111,15 +111,18 @@ def build_eval_model_scaled(model_cfg: dict, scale: float, device="cuda:0"):
     it takes the same weights: ``Trainer.val_epoch`` recomputes a batch
     whose active set overflowed the configured capacity on it, which gives
     the detections a model built with that capacity from the start would
-    give.  (JAX's branch that opens a tile capacity has no counterpart:
-    the port builds no tile backbone.)  No parameters are drawn: load the
-    weights afterwards."""
+    give.  A backbone that runs over tile stacks gets the full tile grid
+    (``tile_capacity = 0``), which cannot overflow.  No parameters are
+    drawn: load the weights afterwards."""
     cfg = copy.deepcopy(model_cfg)
     rd = cfg.get("reader")
     if isinstance(rd, dict):
         for key in ("pillar_capacity", "voxel_capacity", "cylinder_capacity"):
             if key in rd:
                 rd[key] = int(-(-int(rd[key]) * scale // 4096)) * 4096
+    bb = cfg.get("backbone")
+    if isinstance(bb, dict) and (bb.get("sparse_stages_eval") == "tile" or bb.get("tile_stride1")):
+        bb["tile_capacity"] = 0
     return build_model(cfg, device=device)
 
 

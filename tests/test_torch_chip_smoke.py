@@ -115,6 +115,44 @@ def test_matched_fraction_of_one_prediction_at_50_m_is_one():
     assert not chip_smoke.same_prediction(pred, moved)
 
 
+def test_backbone_mode_lists_build_their_modes():
+    """Each serving and training override of the stage-mode paths resolves
+    on the flagship YAML (narrowed here) and builds a backbone in that
+    mode; the five modes held against leading are serving paths."""
+    from pillarnext_tpu_torch.utils.builders import build_model
+    from pillarnext_tpu_torch.utils.config import load_experiment
+    from tests.test_torch_port_e2e import FLAGSHIP, OVERRIDES
+
+    assert len(chip_smoke.SERVING_MODES) == 7 and len(chip_smoke.TRAIN_MODES) == 6
+    assert set(chip_smoke.EXACT_MODES) < set(chip_smoke.SERVING_MODES) and len(chip_smoke.EXACT_MODES) == 5
+    expected = {
+        "serving_tile": ("sparse_stages_eval", "tile"), "serving_leading_down": ("sparse_stages_eval", "leading+down"),
+        "serving_all": ("sparse_stages_eval", "all"), "serving_packed": ("packed_downsample", True),
+        "serving_dense_first": ("sparse_eval", False), "serving_unmasked": ("masked_eval", False),
+        "serving_dense_image": ("strides", (2, 2, 2, 1)), "train_tile_stride1": ("tile_stride1", True),
+        "train_tile": ("sparse_stages_train", "tile"), "train_leading": ("sparse_stages_train", "leading"),
+        "train_leading_down": ("sparse_stages_train", "leading+down"),
+        "train_force_dense": ("force_dense_train", True), "train_dense_image": ("strides", (2, 2, 2, 1)),
+    }
+    for path, override in {**chip_smoke.SERVING_MODES, **chip_smoke.TRAIN_MODES}.items():
+        model = build_model(load_experiment(FLAGSHIP, OVERRIDES + [override])["model"], device="cpu")
+        attr, value = expected[path]
+        assert getattr(model.backbone, attr) == value, (path, attr)
+        # the dense-image strides take the reader's dense image
+        assert (model.reader.output == "dense") == (attr == "strides"), path
+    assert build_model(load_experiment(FLAGSHIP, OVERRIDES)["model"], device="cpu").backbone.sparse_eval
+
+
+def test_f32_agreement_holds_the_backbone_output_at_1e3():
+    g = torch.Generator().manual_seed(0)
+    ref = torch.randn(1, 8, 8, 16, generator=g) * 10
+    assert chip_smoke.f32_agreement(ref * (1 + 5e-4) + 5e-4, ref)["f32_bev_within_1e3"]
+    off = ref.clone()
+    off[0, 3, 3, 3] += 1e-3 + 1.1e-3 * off[0, 3, 3, 3].abs()
+    rec = chip_smoke.f32_agreement(off, ref)
+    assert not rec["f32_bev_within_1e3"] and rec["f32_bev_max_excess_over_rtol"] > 1e-3
+
+
 def test_cli_tree_reads_back_through_the_port_pipeline(tmp_path, monkeypatch):
     """The nuScenes-format tree of the CLI phases, at 2,000 points a sweep:
     each sample's 10 sweeps come back in the keyframe's frame (the sweeps'

@@ -31,7 +31,9 @@ MVF: the narrowed MVF detector on the card against the CPU, its f32 BEV
 bit-identical with the kernels and with their plain versions, and kernel 2
 as its pillar densify at full size (4,194,304 rows of 48 bf16 channels).
 Distributed: a synced BatchNorm over two gloo ranks on the card against
-one process.  No test here sets a TF32 flag.
+one process.  The tile-stack SubM's row movements (ops/tile_subm.py) with
+kernel 2 against their plain versions, backwards included.  No test here
+sets a TF32 flag.
 """
 
 from __future__ import annotations
@@ -1012,3 +1014,39 @@ def test_synced_batchnorm_on_the_card_matches_one_process(device, tmp_path):
                 torch.testing.assert_close(out[k], ref[k].cpu(), rtol=1e-6, atol=1e-6)
         for k in ("weight_grad", "bias_grad"):
             torch.testing.assert_close(outs[0][k] + outs[1][k], ref[k].cpu(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_tile_gathers_on_the_card_match_plain(device, dtype):
+    """ops/tile_subm.py's row movements through kernel 2 on the card (pack,
+    unpack, stack-to-dense, the halo and their backwards) give the bits of
+    their plain versions, at 64 channels over a 2 x 256^2 grid with an
+    overflowing and a full tile capacity."""
+    from pillarnext_tpu_torch.ops import tile_subm
+    from pillarnext_tpu_torch.ops.compact import compactify, invert_slot_map
+
+    g = torch.Generator().manual_seed(0)
+    b, h, w, cap = 2, 256, 256, 12000
+    ids = torch.unique(torch.randint(0, b * h * w, (14000,), generator=g)).to(torch.int32)
+    _, _, slot_id, _ = compactify(ids, b * h * w, cap)
+    sod, _ = invert_slot_map(slot_id, b * h * w)
+    table = torch.randn(cap + 1, 64, generator=g).to(dtype)
+    table[cap] = 0
+    for tile_cap in (400, 2048):
+        maps = [tile_subm.build_tile_map(s.to(d), i.to(d), b, (h, w), cap, 8, tile_cap)
+                for s, i, d in ((sod, slot_id, "cpu"), (sod, slot_id, device))]
+        outs = []
+        for tm, plain in ((maps[1], False), (maps[1], True)):
+            x = table.to(device).requires_grad_(True)
+            stack = tile_subm.pack_stack(x, tm, plain)
+            halo = tile_subm.halo_gather(stack, tm, plain)
+            dense = tile_subm.stack_to_dense(stack, tm, plain)
+            back = tile_subm.unpack_stack(stack, tm, plain)
+            cot = torch.randn(halo.shape, generator=torch.Generator().manual_seed(1)).to(dtype).to(device)
+            ((halo * cot).sum() + dense.float().square().sum() + back.sum()).backward()
+            outs.append([t.detach().cpu() for t in (stack, halo, dense, back, x.grad)])
+        for a, k in zip(*outs):
+            assert torch.equal(a, k)
+        assert int(maps[1].n_tiles) == int(maps[0].n_tiles) > 400
+        for field in ("tile_sod", "tile_id", "nbr", "row_of_slot", "halo_rows", "halo_sources", "row_of_dense"):
+            assert torch.equal(getattr(maps[1], field).cpu(), getattr(maps[0], field)), field

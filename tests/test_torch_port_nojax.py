@@ -433,3 +433,56 @@ def test_port_dataprep_imports_no_jax_and_no_devkit(module):
         assert "nuscenes devkit is required" in calls["create_nuscenes_infos"]
     else:
         assert "waymo_open_dataset are required" in calls["convert"]
+
+
+MODULE_SCRIPT = r"""
+import json, sys
+import torch
+mod = sys.argv[1]
+if mod.endswith("tile_subm"):
+    from pillarnext_tpu_torch.ops import tile_subm
+    from pillarnext_tpu_torch.ops.compact import compactify, invert_slot_map
+    ids = torch.tensor([0, 1, 9, 40, 200, 255, 256 + 17], dtype=torch.int32)
+    _, _, slot_id, _ = compactify(ids, 2 * 256, 16)
+    sod, _ = invert_slot_map(slot_id, 2 * 256)
+    tm = tile_subm.build_tile_map(sod, slot_id, 2, (16, 16), 16, 8, 8)
+    table = torch.randn(17, 4, requires_grad=True)
+    stack = tile_subm.pack_stack(table, tm)
+    y = tile_subm.tile_conv(stack, tm, torch.randn(5, 4, 3, 3))
+    (tile_subm.unpack_stack(y, tm).sum() + tile_subm.stack_to_dense(y, tm).sum()).backward()
+    result = {"tiles": int(tm.n_tiles), "grad": bool(torch.isfinite(table.grad).all())}
+else:
+    from pillarnext_tpu_torch.train.train_state import make_optimizer, train_step
+    from pillarnext_tpu_torch.train.trainer import batch_to_device
+    from pillarnext_tpu_torch.utils.moderate import beam_batch, moderate_detector
+    from pillarnext_tpu_torch.utils.weights import init_random
+    model = moderate_detector(tile_stride1=True)
+    with torch.no_grad():
+        init_random(model, torch.Generator().manual_seed(0))
+    opt, _ = make_optimizer(list(model.parameters()), max_lr=1e-3, total_steps=2)
+    scalars, _ = train_step(model.train(), opt, batch_to_device(beam_batch(batch=1, n_points=3000), "cpu"))
+    result = {"loss": float(scalars["loss"]), "overflow": int(scalars["overflow"])}
+
+def foreign(name):
+    top = name.split(".")[0]
+    return top.startswith("jax") or top.startswith("flax") or top == "pillarnext_tpu"
+
+print(json.dumps({"result": result, "loaded": sorted(m for m in sys.modules if foreign(m))}))
+"""
+
+
+@pytest.mark.parametrize("module", ["pillarnext_tpu_torch.ops.tile_subm", "pillarnext_tpu_torch.utils.moderate"])
+def test_port_tile_and_moderate_modules_import_no_jax(module):
+    """``ops/tile_subm`` (a tile map, a tile conv and its backward) and
+    ``utils/moderate`` (a tile_stride1 train step of the moderate detector)
+    run in a fresh interpreter that loads no JAX or JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", MODULE_SCRIPT, module], capture_output=True, text=True,
+                          env=env, cwd=REPO, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["loaded"] == []
+    if module.endswith("tile_subm"):
+        assert result["result"] == {"tiles": 4, "grad": True}
+    else:
+        assert result["result"]["overflow"] == 0 and result["result"]["loss"] == result["result"]["loss"]

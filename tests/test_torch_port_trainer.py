@@ -86,8 +86,11 @@ def test_trainer_rejects_what_is_not_ported(tmp_path):
     """val_epoch is ported: it predicts each val batch and hands the valid
     detections by token to the loader's dataset, leaving the train-mode
     model in train mode.  accum_steps > 1 is ported (held against JAX in
-    tests/test_torch_port_distributed.py); the tile backbone and the
-    opt-in variants are not, and raise at build."""
+    tests/test_torch_port_distributed.py), and so is every backbone stage
+    mode (tests/test_torch_port_backbone_modes*.py).  What still raises at
+    build: the head's merge_tasks (not ported), a stage mode name that is
+    not one of the four (JAX falls through to 'leading'), and the tile
+    stack with a 5 x 5 stride-1 kernel (its halo is one cell)."""
     cfg = load_experiment(FLAGSHIP, OVERRIDES)
     trainer = _trainer(cfg, [], tmp_path)
     batch = synthetic_batches(cfg, 1, 2, 3000, seed=3, n_objects=4, max_points=4000)[0]
@@ -109,8 +112,9 @@ def test_trainer_rejects_what_is_not_ported(tmp_path):
         assert dets["box3d_lidar"].shape == (len(dets["scores"]), 9) == (len(dets["label_preds"]), 9)
     assert (tmp_path / "results" / "epoch_0").is_dir()
     assert Trainer(trainer.model, [], trainer.optimizer, accum_steps=2, device="cpu").accum_steps == 2
-    for variant in ("+model.backbone.tile_stride1=true", "+model.backbone.packed_downsample=true",
-                    "+model.backbone.force_dense_train=true", "+model.backbone.sparse_stages_eval=all",
-                    "+model.backbone.masked_eval=false", "+model.head.merge_tasks=true"):
-        with pytest.raises(NotImplementedError):
-            build_model(load_experiment(FLAGSHIP, OVERRIDES + [variant])["model"], device="cpu")
+    for variants, error in ((["+model.head.merge_tasks=true"], NotImplementedError),
+                            (["+model.backbone.sparse_stages_eval=leading_down"], ValueError),
+                            (["+model.backbone.sparse_stages_eval=tile",
+                              "+model.backbone.kernel_size=[5,3,3,3]"], ValueError)):
+        with pytest.raises(error):
+            build_model(load_experiment(FLAGSHIP, OVERRIDES + variants)["model"], device="cpu")

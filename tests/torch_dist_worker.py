@@ -253,6 +253,30 @@ def overflow_case(case: dict, rank: int, world: int, device) -> dict:
     return {"raised": None}
 
 
+def moderate_case(case: dict, rank: int, world: int, device) -> dict:
+    """One train step of ``utils.moderate``'s detector (weights from seed
+    0, synced BatchNorm) on this rank's share of ``beam_batch``: its
+    telemetry, overflow, loss and state after the step."""
+    from pillarnext_tpu_torch.train.train_state import make_optimizer
+    from pillarnext_tpu_torch.utils.moderate import beam_batch, moderate_detector
+    from pillarnext_tpu_torch.utils.weights import init_random
+
+    model = moderate_detector(**case["backbone"])
+    with torch.no_grad():
+        init_random(model, torch.Generator().manual_seed(0))
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.sync = True
+    model = model.to(device).train()
+    opt, _ = make_optimizer(list(model.parameters()), max_lr=1e-3, total_steps=10)
+    batch = split_batch(beam_batch(batch=case["batch"], n_points=case["n_points"]), world)[rank]
+    scalars, _ = train_step(model, opt, batch_to_device(batch, device))
+    return {"telemetry": {k: int(v) for k, v in scalars["telemetry"].items()},
+            "overflow": int(scalars["overflow"]), "loss": float(scalars["loss"]),
+            "grad_norm": float(scalars["grad_norm"]),
+            "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
 def cli_case(case: dict) -> dict:
     """``cli.train.main(argv)`` in this rank: its steps, its val
     detections' tokens (rank 0: the union it scored), its val batches and
@@ -297,6 +321,8 @@ def main(spec_path: str, out_dir: str) -> None:
                 out[name] = overflow_case(case, rank, world, device)
             elif kind == "cli":
                 out[name] = cli_case(case)
+            elif kind == "moderate":
+                out[name] = moderate_case(case, rank, world, device)
             else:
                 raise ValueError(f"unknown case kind {kind!r}")
         except Exception:
