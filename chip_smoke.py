@@ -9,7 +9,8 @@ its own ranks.)  Builds the port's CUDA kernels from ``pillarnext_tpu_torch/csrc
 width, random weights from a seed:
 
 - serving: frames through the port's AdaptivePredictor, bf16, batch 1, of
-  the flagship PillarNeXt-B config (nusc_det_pp18_aspp_iou_sp);
+  the flagship PillarNeXt-B config (nusc_det_pp18_aspp_iou_sp), whose
+  head runs the fused eval branches (``fuse_eval``, as in JAX);
 - serving_voxel18: the same for the voxel18 config
   (nusc_det_voxel18_aspp_iou_sp: 40 x 1344 x 1344 voxels, the fully
   sparse 3-D ResNet, kernel 2 as its final densify), with its f32 BEV
@@ -82,6 +83,22 @@ width, random weights from a seed:
   Trainer, each table and tile map beside its rows; an f32
   ``tile_stride1`` step's BEV bit-identical between the kernels and their
   plain versions;
+
+- serving_head_unfused, serving_merge_branches, serving_merge_tasks,
+  serving_pfn_unfused, serving_pfn3, serving_circle_nms,
+  serving_approx_topk: the flagship with one option of its head, reader or
+  post-processing each (``OPTION_PATHS``), served like the serving path;
+  those that compute the default path's function hold their f32
+  detections against its, and the 3-layer PFN's f32 BEV is held
+  bit-identical between the kernels and their plain versions;
+- train_merge_tasks, train_merge_branches: the merged heads in training,
+  B = 4, ``MODE_TRAIN_STEPS`` steps through the Trainer;
+- voxel_dense: voxel18 with the dense (1, 40, 1344, 1344, 5) volume
+  (``model.reader.output=dense``) and the dense 3-D backbone (cuDNN 3-D
+  convs), served like the serving path with ``VOXEL_DENSE_FRAMES``
+  latency frames; its f32 BEV bit-identical between the kernels and
+  their plain versions; train_voxel_dense: the same model trained,
+  B = 2, on a 40 x 672 x 672 grid, ``VOXEL_DENSE_TRAIN_STEPS`` steps;
 
 then holds each kernel against its plain PyTorch version at the shapes
 those paths give it.  Kernel 3 (``sorted_segment_bcast``) also carries
@@ -171,11 +188,44 @@ TRAIN_MODES = {
     "train_dense_image": "model.backbone.ds_layer_strides=[2,2,2,1]",
 }
 MODE_TRAIN_STEPS = 4  # the first step, then 3 timed
+# the flagship with one option of its head, reader or post-processing each,
+# served beside the default path (which runs the fused eval head)
+OPTION_PATHS = {
+    "serving_head_unfused": "+model.head.fuse_eval=false",
+    "serving_merge_branches": "+model.head.merge_branches=true",
+    "serving_merge_tasks": "+model.head.merge_tasks=true",
+    "serving_pfn_unfused": "+model.reader.fuse_eval=false",
+    "serving_pfn3": "model.reader.num_filters=[64,64,64]",
+    "serving_circle_nms": "model.post_processing.nms_type=circle",
+    "serving_approx_topk": "model.post_processing.approx_topk=true",
+}
+# these compute the default path's function: their f32 detections are held against its
+SAME_FUNCTION = ("serving_head_unfused", "serving_merge_branches", "serving_merge_tasks",
+                 "serving_pfn_unfused", "serving_approx_topk")
+MIN_MATCHED = 0.99  # of the f32 detections, against the default path's
+OPTION_TRAIN = {
+    "train_merge_tasks": "+model.head.merge_tasks=true",
+    "train_merge_branches": "+model.head.merge_branches=true",
+}
+# voxel18 with the dense (B, D, H, W, C) volume and the dense 3-D backbone:
+# served at the config's 40 x 1344 x 1344 grid, trained on a 40 x 672 x 672 one
+VOXEL_DENSE = "+model.reader.output=dense"
+VOXEL_DENSE_FRAMES = 3
+VOXEL_DENSE_TRAIN = [VOXEL_DENSE, "model.reader.pc_range=[-25.2,-25.2,-5.0,25.2,25.2,3.0]"]
+VOXEL_DENSE_TRAIN_STEPS = 3
+VOXEL_DENSE_TRAIN_BATCH = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 non-tensor
 
 
+STARTED = time.perf_counter()
+
+
 def emit(record: dict) -> None:
+    """One JSON line; a phase record also carries ``script_seconds``, the
+    script's wall time when it was written (where the run's time goes)."""
+    if "phase" in record:
+        record = {**record, "script_seconds": time.perf_counter() - STARTED}
     print(json.dumps(record), flush=True)
 
 
@@ -674,12 +724,14 @@ def layer_breakdown(model, points, mask, capacity, max_bucket=None):
     from pillarnext_tpu_torch.serving import tile_kwargs
 
     nms_ms = []
-    rotated_nms = nms.rotated_nms
+    real_nms = {name: getattr(nms, name) for name in ("rotated_nms", "circle_nms")}
 
-    def timed_nms(*args):
-        out, ms = synced_ms(lambda: rotated_nms(*args))
-        nms_ms.append(ms)
-        return out
+    def timed(name):
+        def timed_nms(*args):
+            out, ms = synced_ms(lambda: real_nms[name](*args))
+            nms_ms.append(ms)
+            return out
+        return timed_nms
 
     cfg = model.post_processing
     if cfg.get("candidate_sparse_head", False):
@@ -705,11 +757,13 @@ def layer_breakdown(model, points, mask, capacity, max_bucket=None):
             tiles = tile_kwargs(model, capacity, capacity if max_bucket is None else max_bucket)
             x, backbone_ms = synced_ms(lambda: model.backbone(x, **tiles))
         x, neck_ms = synced_ms(lambda: model.neck(x))
-        nms.rotated_nms = timed_nms
+        for name in real_nms:
+            setattr(nms, name, timed(name))
         try:
             _, head_ms = synced_ms(lambda: head(x))
         finally:
-            nms.rotated_nms = rotated_nms
+            for name, fn in real_nms.items():
+                setattr(nms, name, fn)
     out = {"reader": reader_ms, "backbone": backbone_ms, "neck": neck_ms,
            "head_decode_nms": head_ms, "of_which_nms": sum(nms_ms)}
     if spans:
@@ -861,6 +915,10 @@ def table_report(model, tel: dict, bucket: int, batch: int = 1, tiles: int | Non
     voxel18: the reader's voxels and each strided stage's sites."""
     reader = model.reader
     kind = type(reader).__name__
+    if kind == "VoxelFeatureNet" and reader.output == "dense":
+        # one slot a point: the dense reader's table cannot overflow
+        return {"voxel": {"active": int(tel["voxel_active"]), "capacity": "one slot a point",
+                          "overflow": int(tel["voxel_overflow"])}}
     if kind == "VoxelFeatureNet":
         grid = reader.grid
         spatial = (grid.size_z, grid.size_y, grid.size_x)
@@ -885,12 +943,13 @@ def table_report(model, tel: dict, bucket: int, batch: int = 1, tiles: int | Non
                    "overflow": int(tel[f"{name}_overflow"])} for name, c in caps.items()}
 
 
-def serving_path(path: str, model_cfg, model, device, required: tuple):
+def serving_path(path: str, model_cfg, model, device, required: tuple, latency_frames: int = LATENCY_FRAMES):
     """A serving main path, bf16, batch 1, through AdaptivePredictor at the
     config's full grid: per frame the valid count, the bucket it ran at,
     whether it was repaired and each table's active count beside its rows;
-    the latency median, a breakdown, peak memory and the launches; fails
-    unless every kernel in ``required`` launched."""
+    the latency median of ``latency_frames`` frames, a breakdown, peak
+    memory and the launches; fails unless every kernel in ``required``
+    launched."""
     from pillarnext_tpu_torch.serving import AdaptivePredictor, tile_kwargs
 
     pc_range = model_cfg["reader"]["pc_range"]
@@ -921,7 +980,7 @@ def serving_path(path: str, model_cfg, model, device, required: tuple):
                           "bucket": bucket, "repaired": engine.repaired > repaired,
                           "tables": table_report(model, tel, bucket, tiles=tiles.get("tile_capacity"))})
     latencies = []
-    for _ in range(LATENCY_FRAMES):
+    for _ in range(latency_frames):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine.predict(*frames[0])
@@ -1224,6 +1283,83 @@ def train_modes(batches, device) -> dict:
                                        check_bev=True)
             torch.cuda.empty_cache()
     return out
+
+
+def f32_predict(model_cfg, points, mask, device) -> dict:
+    """One f32 predict of ``model_cfg`` with random weights from seed 0."""
+    from pillarnext_tpu_torch.utils.builders import build_model
+
+    model = build_model(dict(model_cfg, dtype="float32"), device=device, generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        return model.predict(points, mask)
+
+
+def serving_options(device) -> dict:
+    """The flagship as its YAML gives it with one option each
+    (``OPTION_PATHS``: the unfused and the merged heads, the unfused and
+    the 3-layer PFN stacks, circle NMS, approx_topk), served bf16 at batch
+    1 through AdaptivePredictor (``serving_path``), each failing unless
+    the kernels of its path launched (kernel 1 serves only the fused
+    2-layer PFN).  Then one f32 frame against the default path's at the
+    same weights: the paths that compute its function (``SAME_FUNCTION``)
+    must give as many detections, ``MIN_MATCHED`` of them matched; the
+    3-layer PFN's f32 BEV must be bit-identical between the kernels and
+    their plain versions.  Returns each path's model (profiled in the last
+    phase) and launches."""
+    from pillarnext_tpu_torch.utils.builders import build_model
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    base = load_experiment(FLAGSHIP)["model"]
+    points, mask = frame(base["reader"]["pc_range"], 0, device)
+    ref = f32_predict(base, points, mask, device)
+    out = {}
+    for path, override in OPTION_PATHS.items():
+        mcfg = load_experiment(FLAGSHIP, [override])["model"]
+        model = build_model(mcfg, device=device, generator=torch.Generator().manual_seed(0))
+        required = KERNELS if model.reader.kernel_eval else KERNELS[1:]
+        _, launches = serving_path(path, mcfg, model, device, required)
+        dets = f32_predict(mcfg, points, mask, device)
+        rec = {"phase": f"{path}_vs_serving", "override": override,
+               "f32_valid": [int(dets["valid"][0].sum()), int(ref["valid"][0].sum())],
+               "f32_matched_fraction": matched_fraction(dets, ref), "f32_bit_identical": same_prediction(dets, ref),
+               "tolerance": f"as many f32 detections as the default path, >= {MIN_MATCHED} matched"
+               if path in SAME_FUNCTION else "reported only: another function"}
+        emit(rec)
+        if path in SAME_FUNCTION and (rec["f32_valid"][0] != rec["f32_valid"][1]
+                                      or rec["f32_matched_fraction"] < MIN_MATCHED):
+            raise AssertionError(f"{path}: the f32 detections differ from the default path's: {rec}")
+        if path == "serving_pfn3":
+            f32_bev_kernels_vs_plain("pfn3_f32_kernels_vs_plain", mcfg, points, mask, device)
+        del dets
+        out[path] = {"model": model, "launches": launches}
+        torch.cuda.empty_cache()
+    return out
+
+
+def voxel_dense_path(device) -> dict:
+    """voxel18 at full widths with the dense volume (``VOXEL_DENSE``) at the
+    config's 40 x 1344 x 1344 grid, served as every path is
+    (``serving_path``, ``VOXEL_DENSE_FRAMES`` latency frames; kernels 2 and
+    3 must launch: the reader's sums and its densify); then, outside the
+    counted run, the volume's shape and occupied voxels, and the f32 BEV
+    bit-identical between the kernels and their plain versions.  Returns
+    the model, a frame and the launches."""
+    from pillarnext_tpu_torch.utils.builders import build_model
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    vcfg = load_experiment(VOXEL18, [VOXEL_DENSE])["model"]
+    model = build_model(vcfg, device=device, generator=torch.Generator().manual_seed(0))
+    frames, launches = serving_path("voxel_dense", vcfg, model, device, KERNELS[1:],
+                                    latency_frames=VOXEL_DENSE_FRAMES)
+    with torch.inference_mode():
+        volume = model.reader(*frames[0])
+        emit({"phase": "voxel_dense_volume", "override": VOXEL_DENSE, "volume_shape": list(volume.shape),
+              "occupied_voxels": int(volume.any(-1).sum())})
+        del volume
+    torch.cuda.empty_cache()
+    f32_bev_kernels_vs_plain("voxel_dense_f32_kernels_vs_plain", vcfg, *frames[0], device)
+    torch.cuda.empty_cache()
+    return {"model": model, "frame": frames[0], "launches": launches}
 
 
 def write_nuscenes_tree(root: Path, pc_range, class_names: list, seed: int) -> dict:
@@ -2118,6 +2254,15 @@ def main() -> None:
     # detections) or its own plain kernels (f32 BEV)
     modes = serving_modes(device)
 
+    # phase 5d: the flagship's head, reader and post-processing options,
+    # served bf16 at batch 1 beside the default path (the fused head), each
+    # held against its f32 detections where it computes the same function
+    options = serving_options(device)
+
+    # phase 5e: voxel18 with the dense volume and the dense 3-D backbone at
+    # the config's 40 x 1344 x 1344 grid, bf16, batch 1
+    dense = voxel_dense_path(device)
+
     # phase 6: the training main path, bf16, B = 4, through the Trainer
     # (its checkpoint goes to a directory of the checkout that is removed)
     with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
@@ -2133,6 +2278,15 @@ def main() -> None:
     # B = 4, through the Trainer; an f32 tile_stride1 step, kernels vs plain
     train_mode_launches = train_modes(batches, device)
 
+    # phase 7c: the merged heads in training, bf16, B = 4, through the Trainer
+    for path, override in OPTION_TRAIN.items():
+        with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
+            train_model, train_mode_launches[path] = train_path(
+                load_experiment(FLAGSHIP, [override]), batches[:MODE_TRAIN_STEPS], device, work_dir, path,
+                KERNELS[1:])
+        del train_model
+        torch.cuda.empty_cache()
+
     # phase 8: voxel18 training, bf16, B = 4 at the config's grid, through
     # the Trainer; then an f32 step, kernels vs plain versions
     t0 = time.perf_counter()
@@ -2146,6 +2300,16 @@ def main() -> None:
     del train_model
     torch.cuda.empty_cache()
     f32_train_kernels_vs_plain(vcfg, vbatches[0], device, "voxel18_f32_train_kernels_vs_plain")
+    torch.cuda.empty_cache()
+
+    # phase 8a: voxel18 with the dense volume in training, bf16, B = 2 on a
+    # 40 x 672 x 672 grid, through the Trainer
+    dcfg = load_experiment(VOXEL18, VOXEL_DENSE_TRAIN)
+    dbatches = synthetic_batches(dcfg, VOXEL_DENSE_TRAIN_STEPS, VOXEL_DENSE_TRAIN_BATCH, N_POINTS, seed=0)
+    with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
+        train_model, dense_train_launches = train_path(dcfg, dbatches, device, work_dir, "train_voxel_dense",
+                                                       KERNELS[1:])
+    del train_model, dbatches
     torch.cuda.empty_cache()
 
     # phase 8b: training of the three Waymo configs, bf16, B = 4 at the
@@ -2227,6 +2391,13 @@ def main() -> None:
     train_cases += waymo_gathers
     sum_cases += waymo_segs
     del waymo_gathers, waymo_segs
+    # kernel 2's densify of the dense voxel volume (B * 40 * 1344^2 rows)
+    # and kernel 3's voxel mean in one voxel_dense predict
+    dense_gathers, dense_sums = predict_kernel_inputs(dense["model"], *dense["frame"], (), ("voxel_dense_densify",),
+                                                      ("voxel_dense_voxel_mean",))
+    train_cases += dense_gathers
+    sum_cases += dense_sums
+    del dense_gathers, dense_sums
     torch.cuda.empty_cache()
     with torch.inference_mode():
         slot, cap = check_pfn(model.reader, points, mask, gen, device, records)
@@ -2252,6 +2423,8 @@ def main() -> None:
     profiled += [(path, serving_model(w["cfg"]["model"], device), frame(w["cfg"]["model"]["reader"]["pc_range"], 0, device))
                  for path, w in waymo.items()]
     profiled += [(path, w.pop("model"), (points, mask)) for path, w in modes.items()]
+    profiled += [(path, w.pop("model"), (points, mask)) for path, w in options.items()]
+    profiled.append(("voxel_dense", dense.pop("model"), dense.pop("frame")))
     with torch.inference_mode():
         for path, mdl, (p, m) in profiled:
             # a tile backbone at the largest bucket runs the full tile grid, as serving does
@@ -2287,7 +2460,9 @@ def main() -> None:
              "cli_train": cli_train_launches, "cli_test": cli_test_launches,
              "cli_train_ddp": cli_ddp_launches, "cli_waymo": cli_waymo_launches,
              "cli_waymo_test": cli_waymo_test_launches, "ddp_train": ddp_launches, "ddp_nccl": nccl_launches,
-             **{path: w["launches"] for path, w in modes.items()}, **train_mode_launches}
+             **{path: w["launches"] for path, w in modes.items()}, **train_mode_launches,
+             **{path: w["launches"] for path, w in options.items()}, "voxel_dense": dense["launches"],
+             "train_voxel_dense": dense_train_launches}
     by_path = {k: {p: n[k] for p, n in paths.items()} for k in KERNELS}
     cases = records["gather_cases"]
     kernels_line = [
@@ -2302,7 +2477,9 @@ def main() -> None:
              launches_per_train_step={**{p: by_path["sorted_segment_bcast"][p] / TRAIN_STEPS
                                          for p in ("train", "train_voxel18", *wtrain)},
                                       **{p: n["sorted_segment_bcast"] / MODE_TRAIN_STEPS
-                                         for p, n in train_mode_launches.items()}},
+                                         for p, n in train_mode_launches.items()},
+                                      "train_voxel_dense": dense_train_launches["sorted_segment_bcast"]
+                                      / VOXEL_DENSE_TRAIN_STEPS},
              device_launches_per_call=records["sorted_segment_bcast"]["device_launches_per_call"],
              segment_sums={case: summary(rec) for case, rec in records["segment_sums"].items()},
              max_broadcasts={case: summary(rec) for case, rec in records["max_broadcasts"].items()}),

@@ -1,7 +1,8 @@
-"""Rotated NMS with fixed-size outputs, batched over lanes.
+"""Rotated, axis-aligned and circle NMS with fixed-size outputs, batched
+over lanes.
 
-Counterpart of ``rotated_nms`` and its helpers
-(pillarnext_tpu/core/nms.py:41-172).  Candidates stream in score order in
+Counterpart of ``rotated_nms``, ``axis_aligned_nms``, ``circle_nms`` and
+their helpers (pillarnext_tpu/core/nms.py:41-232).  Candidates stream in score order in
 chunks of 128; each chunk is tested against the kept set, then resolved
 within itself by the greedy fixpoint ``keep <- valid & ~(keep @ over)``.
 
@@ -95,6 +96,24 @@ def _select(order: torch.Tensor, keep: torch.Tensor, post_max: int):
     return torch.where(sel_valid, sel, 0), sel_valid
 
 
+def _greedy_nms(cand, scores, pre_max_size: int, post_max_size: int, overlaps):
+    """Greedy NMS per lane over (L, N, D) candidate rows: the top
+    ``pre_max_size`` by score (ties in ascending index, ``lax.top_k``'s
+    order), ``overlaps(a, b)`` -> (L, M, N) bool, the kept rows compacted
+    and padded to ``post_max_size``."""
+    k = min(pre_max_size, cand.shape[1])
+    top_scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    top_scores, order = top_scores[:, :k], order[:, :k]
+    valid = top_scores > NEG_INF / 2
+    rows = torch.gather(cand, 1, order[..., None].expand(-1, -1, cand.shape[-1]))
+    keep = _chunked_greedy(rows, valid, overlaps, post_max_size)
+    return _select(order, keep, post_max_size)
+
+
+def _lane_thresholds(thresh, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(thresh, dtype=like.dtype, device=like.device).reshape(-1, 1, 1)
+
+
 def rotated_nms(boxes, scores, thresh, pre_max_size: int, post_max_size: int):
     """Rotated BEV NMS per lane.
 
@@ -107,16 +126,41 @@ def rotated_nms(boxes, scores, thresh, pre_max_size: int, post_max_size: int):
     Returns:
         (L, post_max_size) indices into the N rows, and their validity.
     """
-    lanes, n, _ = boxes.shape
-    k = min(pre_max_size, n)
-    top_scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
-    top_scores, order = top_scores[:, :k], order[:, :k]
-    valid = top_scores > NEG_INF / 2
-    cand = torch.gather(boxes, 1, order[..., None].expand(-1, -1, boxes.shape[-1]))
-    th = torch.as_tensor(thresh, dtype=boxes.dtype, device=boxes.device).reshape(-1, 1, 1)
+    th = _lane_thresholds(thresh, boxes)
 
     def overlaps(a, b):
         return torch_box_ops.boxes_iou_bev(a, b) > th
 
-    keep = _chunked_greedy(cand, valid, overlaps, post_max_size)
-    return _select(order, keep, post_max_size)
+    return _greedy_nms(boxes, scores, pre_max_size, post_max_size, overlaps)
+
+
+def axis_aligned_nms(boxes, scores, thresh, pre_max_size: int, post_max_size: int):
+    """Axis-aligned BEV NMS per lane (nms.py:175-211, the reference's
+    ``nms_normal_gpu``: greedy over the IoU of the boxes' axis-aligned
+    footprints, yaw ignored); the interface of ``rotated_nms``."""
+    th = _lane_thresholds(thresh, boxes)
+
+    def overlaps(a, b):
+        half_a, half_b = a[..., None, 3:5] / 2, b[..., None, :, 3:5] / 2
+        lo = torch.maximum(a[..., None, :2] - half_a, b[..., None, :, :2] - half_b)
+        hi = torch.minimum(a[..., None, :2] + half_a, b[..., None, :, :2] + half_b)
+        inter = torch.clamp(hi - lo, min=0.0).prod(-1)
+        area_a = a[..., 3:5].prod(-1)[..., :, None]
+        area_b = b[..., 3:5].prod(-1)[..., None, :]
+        return inter / torch.clamp(area_a + area_b - inter, min=1e-9) > th
+
+    return _greedy_nms(boxes, scores, pre_max_size, post_max_size, overlaps)
+
+
+def circle_nms(centers, scores, radius, pre_max_size: int, post_max_size: int):
+    """CenterPoint's circle NMS per lane (nms.py:214-232): a later
+    candidate is suppressed when its centre lies within the lane's
+    ``radius`` (metres) of a kept one.  ``centers`` (L, N, >= 2), x and y
+    first; the interface of ``rotated_nms``."""
+    r2 = torch.square(_lane_thresholds(radius, centers))
+
+    def overlaps(a, b):
+        d2 = torch.square(a[..., :, None, :] - b[..., None, :, :]).sum(-1)
+        return d2 < r2
+
+    return _greedy_nms(centers[..., :2], scores, pre_max_size, post_max_size, overlaps)

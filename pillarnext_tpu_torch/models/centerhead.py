@@ -1,7 +1,9 @@
 """CenterPoint head: shared conv, per-task SepHeads, decode, NMS and loss.
 
-Counterpart of ``SepHead`` / ``CenterHead`` (pillarnext_tpu/models/centerhead.py:43-157,
-:303-564, :568-782).  Maps are NHWC at the module boundary.  With the
+Counterpart of ``SepHead`` / ``MergedSepHeads`` / ``CenterHead``
+(pillarnext_tpu/models/centerhead.py:43-782), every option of JAX's:
+``fuse_eval`` (the default), ``merge_branches``, ``merge_tasks``, and
+``nms_type`` ``iou3d`` or ``circle``.  Maps are NHWC at the module boundary.  With the
 post-processing config's ``candidate_sparse_head``, hm/reg/height[/iou]
 run dense while dim/rot/vel are evaluated only at the selected candidates,
 on zero-padded (2R+1)^2 patches of the task's deblock output — the same
@@ -16,6 +18,7 @@ from typing import Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from pillarnext_tpu_torch.core import nms as nms_lib
@@ -66,12 +69,26 @@ class MLPHead(nn.Sequential):
 
 
 class SepHead(nn.Module):
-    """One task group's deblock and branch bank (centerhead.py:43-155)."""
+    """One task group's deblock and branch bank (centerhead.py:43-214).
+
+    Three executions of the same per-branch parameters (the reference
+    schema), as JAX's SepHead runs them when every branch has two convs:
+    ``merge_branches`` (training and eval) runs the branches' first convs
+    as one conv 64 -> R * 64 with one BatchNorm over the concatenation,
+    then each branch's final conv on its 64-channel share; ``fuse_eval``
+    (eval only, JAX's default) also merges the first convs and runs ONE
+    block-diagonal final conv (branch b's outputs read only channels
+    ``[b * 64, b * 64 + 64)``); otherwise each branch runs on its own.
+    The merged weights are assembled at apply time."""
 
     def __init__(self, in_ch, heads: Mapping[str, tuple], stride=1, head_conv=64,
-                 init_bias=-2.19, final_kernel=3):
+                 init_bias=-2.19, final_kernel=3, fuse_eval: bool = True, merge_branches: bool = False):
         super().__init__()
         self.names = list(heads)
+        self.head_conv = head_conv
+        two_conv = all(int(nc) == 2 for _, nc in heads.values())
+        self.merge_branches = merge_branches and two_conv
+        self.fuse_eval = fuse_eval and not merge_branches and two_conv
         self.deblock = (
             ConvTransposeBlock(in_ch, head_conv, stride) if stride > 1 else None
         )
@@ -88,10 +105,70 @@ class SepHead(nn.Module):
 
     def branches(self, x, names, mask=None):
         """{name: NHWC map} for ``names`` over NCHW ``x``."""
-        return {n: getattr(self, n)(x, mask).permute(0, 2, 3, 1) for n in names}
+        if self.merge_branches and list(names) == self.names:
+            out = self._merged_branches(x)
+        elif self.fuse_eval and not self.training:
+            out = self._fused_branches(x, names, mask)
+        else:
+            out = {n: getattr(self, n)(x, mask) for n in names}
+        return {n: y.permute(0, 2, 3, 1) for n, y in out.items()}
+
+    def _merged_branches(self, x):
+        """``merge_branches`` (centerhead.py:96-132): one first conv over
+        every branch, one BatchNorm, each final conv on its share."""
+        heads = [getattr(self, n) for n in self.names]
+        first = heads[0][0]
+        w1 = torch.cat([h[0].weight for h in heads]).to(x.dtype)
+        b1 = torch.cat([h[0].bias for h in heads]).to(x.dtype)
+        h = F.conv2d(x, w1, b1, padding=first.padding)
+        h = torch.relu(BatchNorm.concatenated([hd[1] for hd in heads], h))
+        hc = self.head_conv
+        return {n: conv2d(h[:, i * hc:(i + 1) * hc], hd[-1])
+                for i, (n, hd) in enumerate(zip(self.names, heads))}
+
+    def _fused_branches(self, x, names, mask):
+        """``fuse_eval`` (centerhead.py:157-214): the first convs as one
+        conv, eval BatchNorm in JAX's order and dtype (``mul = rsqrt(var +
+        eps) * scale`` in x's dtype), ReLU, ``mask`` (patches), then one
+        block-diagonal final conv; the biases are added after each conv."""
+        heads = [getattr(self, n) for n in names]
+        dt = x.dtype
+        pad = heads[0][0].padding
+        norms = [h[1] for h in heads]
+
+        def cat(tensors):
+            return torch.cat(list(tensors)).to(dt)
+
+        h = F.conv2d(x, cat(hd[0].weight for hd in heads), None, padding=pad)
+        h = h + cat(hd[0].bias for hd in heads)[:, None, None]
+        mean = cat(n.running_mean for n in norms)[:, None, None]
+        mul = torch.rsqrt(cat(n.running_var for n in norms) + norms[0].eps) * cat(n.weight for n in norms)
+        h = torch.relu((h - mean) * mul[:, None, None] + cat(n.bias for n in norms)[:, None, None])
+        if mask is not None:
+            h = h * mask
+        # block b of the (sum c_b, R * hc * k * k) matrix is branch b's
+        # final weight: reshaped, each output reads only its branch's channels
+        finals = [hd[-1].weight for hd in heads]
+        co = sum(w.shape[0] for w in finals)
+        w2 = torch.block_diag(*(w.reshape(w.shape[0], -1) for w in finals))
+        w2 = w2.reshape(co, len(finals) * finals[0].shape[1], *finals[0].shape[2:])
+        y = F.conv2d(h, w2.to(dt), None, padding=pad) + cat(hd[-1].bias for hd in heads)[:, None, None]
+        return dict(zip(names, torch.split(y, [w.shape[0] for w in finals], dim=1)))
 
 
 class CenterHead(nn.Module):
+    """Shared conv + BN + ReLU, then one SepHead per task group
+    (centerhead.py:303-470).  ``merge_tasks`` (when every stride is equal
+    and every branch has two convs, centerhead.py:368-386) runs every
+    task's SepHead as task-batched convolutions (``MergedSepHeads``,
+    centerhead.py:217-300): one ConvTranspose 64 -> T * 64 (x tiled T
+    times at stride 1), one grouped conv (T groups) for every branch's
+    first conv with one BatchNorm, and per branch one grouped final conv,
+    hm zero-padded to the largest class count and sliced.  Both merges
+    bypass the candidate-sparse head.  The parameters keep the per-task,
+    per-branch reference schema in every option, so one checkpoint loads
+    into each; the merged weights are assembled at apply time."""
+
     def __init__(
         self,
         in_channels: int,
@@ -106,6 +183,7 @@ class CenterHead(nn.Module):
         with_reg_iou: bool = False,
         merge_tasks: bool = False,
         merge_branches: bool = False,
+        fuse_eval: bool = True,
         voxel_size: Sequence[float] | None = None,
         pc_range: Sequence[float] | None = None,
         out_size_factor: Sequence[int] | None = None,
@@ -113,8 +191,6 @@ class CenterHead(nn.Module):
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
-        if merge_tasks or merge_branches:
-            raise NotImplementedError("merge_tasks / merge_branches not ported yet, see ROADMAP")
         # the training loss (CenterHead.loss)
         self.loss_weight = weight
         self.register_buffer("code_weights", torch.tensor(code_weights, dtype=torch.float32),
@@ -128,6 +204,14 @@ class CenterHead(nn.Module):
         self.common_heads = {k: (int(v[0]), int(v[1])) for k, v in common_heads.items()}
         self.num_hm_conv = num_hm_conv
         self.rectifier = [list(r) for r in rectifier]
+        self.merge_branches = merge_branches
+        self.merge_tasks = (
+            merge_tasks
+            and len({int(s) for s in strides}) == 1
+            and all(nc == 2 for _, nc in self.common_heads.values())
+            and num_hm_conv == 2
+        )
+        self.stride = int(strides[0])
         hc = share_conv_channel
         self.shared_conv = nn.Sequential(
             nn.Conv2d(in_channels, hc, 3, padding=1, bias=True), BatchNorm(hc, BN_EPS_DENSE, BN_MOMENTUM_DENSE)
@@ -136,7 +220,8 @@ class CenterHead(nn.Module):
         for num_cls, stride in zip(self.num_classes, strides):
             heads = dict(self.common_heads)
             heads["hm"] = (num_cls, num_hm_conv)
-            seps.append(SepHead(hc, heads, int(stride), hc, init_bias))
+            seps.append(SepHead(hc, heads, int(stride), hc, init_bias,
+                                fuse_eval=fuse_eval, merge_branches=merge_branches))
         self.tasks = nn.ModuleList(seps)
 
     def _shared(self, x):
@@ -145,9 +230,20 @@ class CenterHead(nn.Module):
 
     def forward(self, x: torch.Tensor, test_cfg=None):
         """NHWC features -> per-task dicts of dense NHWC maps; with
-        ``test_cfg`` and its ``candidate_sparse_head``, the detections."""
+        ``test_cfg`` the detections (candidate-sparse with its
+        ``candidate_sparse_head``, in eval, without a merge)."""
         x = self._shared(x)
-        if test_cfg is None or not test_cfg.get("candidate_sparse_head", False):
+        if self.merge_tasks:
+            outs = self._merged_tasks(x)
+            return outs if test_cfg is None else self.predict(outs, test_cfg)
+        candidate_sparse = (
+            test_cfg is not None
+            and not self.training
+            and bool(test_cfg.get("candidate_sparse_head", False))
+            and not self.merge_branches
+            and all(n in self.common_heads for n in SPARSE_NAMES)
+        )
+        if not candidate_sparse:
             outs = [sep.branches(sep.features(x), sep.names) for sep in self.tasks]
             return outs if test_cfg is None else self.predict(outs, test_cfg)
 
@@ -180,6 +276,40 @@ class CenterHead(nn.Module):
             )
 
         return self.predict(partials, test_cfg, drv_fn=drv_fn)
+
+    def _merged_tasks(self, x):
+        """``MergedSepHeads`` (centerhead.py:248-300) over NCHW ``x``: the
+        per-task dicts of NHWC maps."""
+        seps, dt = list(self.tasks), x.dtype
+        t, hc, names = len(seps), seps[0].head_conv, seps[0].names
+        r = len(names)
+        if self.stride > 1:
+            w = torch.cat([s.deblock.conv.weight for s in seps], dim=1).to(dt)
+            x = F.conv_transpose2d(x, w, stride=self.stride)
+            x = torch.relu(BatchNorm.concatenated([s.deblock.norm for s in seps], x))
+        else:
+            x = x.repeat(1, t, 1, 1)
+        firsts = [getattr(s, n) for s in seps for n in names]  # task-major
+        w1 = torch.cat([f[0].weight for f in firsts]).to(dt)
+        b1 = torch.cat([f[0].bias for f in firsts]).to(dt)
+        h = F.conv2d(x, w1, b1, padding=1, groups=t)
+        h = torch.relu(BatchNorm.concatenated([f[1] for f in firsts], h))
+        hm_pad = max(self.num_classes)
+        outs = [{} for _ in range(t)]
+        for bi, name in enumerate(names):
+            hin = torch.cat([h[:, (ti * r + bi) * hc:(ti * r + bi + 1) * hc] for ti in range(t)], dim=1)
+            ws, bs = [], []
+            for s in seps:
+                final = getattr(s, name)[-1]
+                pad = hm_pad - final.weight.shape[0] if name == "hm" else 0
+                ws.append(F.pad(final.weight, (0, 0, 0, 0, 0, 0, 0, pad)))
+                bs.append(F.pad(final.bias, (0, pad)))
+            c_out = ws[0].shape[0]
+            y = F.conv2d(hin, torch.cat(ws).to(dt), torch.cat(bs).to(dt), padding=1, groups=t)
+            for ti in range(t):
+                width = self.num_classes[ti] if name == "hm" else c_out
+                outs[ti][name] = y[:, ti * c_out:ti * c_out + width].permute(0, 2, 3, 1)
+        return outs
 
     # ---------------- loss ----------------
 
@@ -239,13 +369,19 @@ class CenterHead(nn.Module):
         return total, logs
 
     def predict(self, preds_dicts, test_cfg, drv_fn=None):
-        """Decode + per-class rotated NMS with fixed-size outputs
+        """Decode + per-class NMS with fixed-size outputs
         (centerhead.py:568-782): box3d_lidar (B, D, 9), scores (B, D),
         label_preds (B, D), valid (B, D), D = sum of classes x
         nms_post_max_size.  ``drv_fn(task_id, flat_idx) -> (dim, rot, vel)``
         supplies the regression values at the candidates (default: gather
-        the dense maps)."""
+        the dense maps).  ``nms_type``: ``iou3d`` (rotated BEV IoU) or
+        ``circle`` (centre distance, the lane's ``nms_iou_threshold`` its
+        radius in metres).  The candidates are an exact top-k whether or
+        not ``approx_topk`` is set: JAX's ``lax.approx_max_k`` returns
+        exactly ``lax.top_k``'s values and indices, ties included, on the
+        CPU and the GPU (it approximates only on a TPU)."""
         nms_cfg = test_cfg["nms"]
+        circle = test_cfg.get("nms_type", "iou3d") == "circle"
         pre = int(nms_cfg["nms_pre_max_size"])
         post = int(nms_cfg["nms_post_max_size"])
         device = preds_dicts[0]["hm"].device
@@ -331,13 +467,13 @@ class CenterHead(nn.Module):
             lane_thresh = np.tile(
                 np.concatenate([np.broadcast_to(t["thresh"], (t["num_cls"],)) for t in group]), b
             )
-            sel_c, sel_valid = nms_lib.rotated_nms(
-                cand_boxes[..., [0, 1, 2, 3, 4, 5, 8]],
-                cand_scores,
-                torch.as_tensor(lane_thresh, device=device),
-                pre_cap,
-                post,
-            )
+            lane_thresh = torch.as_tensor(lane_thresh, device=device)
+            if circle:
+                sel_c, sel_valid = nms_lib.circle_nms(cand_boxes[..., :2], cand_scores, lane_thresh,
+                                                      pre_cap, post)
+            else:
+                sel_c, sel_valid = nms_lib.rotated_nms(cand_boxes[..., [0, 1, 2, 3, 4, 5, 8]], cand_scores,
+                                                       lane_thresh, pre_cap, post)
             sel_c = sel_c.reshape(b, c_tot, post)
             sel_valid = sel_valid.reshape(b, c_tot, post)
             cand_boxes = cand_boxes.reshape(b, c_tot, pre_cap, 9)

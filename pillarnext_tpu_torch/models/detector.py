@@ -16,7 +16,10 @@ from typing import Any
 import torch
 from torch import nn
 
-_PORTED_NMS = ("iou3d",)
+# JAX's head runs circle NMS for "circle" and rotated NMS for any other
+# name (centerhead.py:731-735), the reference's own "circle_nms" too; the
+# port raises for a name that is neither
+NMS_TYPES = ("iou3d", "circle")
 
 
 @contextlib.contextmanager
@@ -39,12 +42,8 @@ class SingleStageDetector(nn.Module):
     def __init__(self, reader, backbone=None, neck=None, head=None, post_processing: Any = None):
         super().__init__()
         cfg = post_processing or {}
-        if cfg.get("nms_type", "iou3d") not in _PORTED_NMS:
-            raise NotImplementedError(
-                f"nms_type={cfg['nms_type']!r} not ported yet (iou3d only), see ROADMAP"
-            )
-        if cfg.get("approx_topk", False):
-            raise NotImplementedError("approx_topk not ported yet, see ROADMAP")
+        if cfg.get("nms_type", "iou3d") not in NMS_TYPES:
+            raise ValueError(f"nms_type must be one of {NMS_TYPES}, got {cfg['nms_type']!r}")
         self.reader = reader
         self.backbone = backbone
         self.neck = neck

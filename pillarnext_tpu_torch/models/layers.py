@@ -80,20 +80,49 @@ class BatchNorm(nn.Module):
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
     def forward(self, x: torch.Tensor, channel_dim: int = 1, valid=None) -> torch.Tensor:
+        return BatchNorm._normalise([self], x, channel_dim, valid)
+
+    @staticmethod
+    def concatenated(norms: list, x: torch.Tensor, channel_dim: int = 1) -> torch.Tensor:
+        """One BatchNorm over ``x`` whose channels are those of ``norms``
+        in order (a merged head's concatenated branches or tasks), every
+        row counting: flax ``nn.BatchNorm`` over the concatenation.  The
+        statistics are per channel, so each norm's share equals its own
+        forward's; in training each norm's share of the batch statistics
+        updates its own running buffers, and under ``sync`` one all-reduce
+        covers every channel.  Eval folds as ``forward`` does."""
+        if len(norms) == 1:
+            return norms[0](x, channel_dim)
+        return BatchNorm._normalise(norms, x, channel_dim, None)
+
+    @staticmethod
+    def _normalise(norms: list, x: torch.Tensor, channel_dim: int, valid) -> torch.Tensor:
+        """``forward`` over the channels of ``norms`` in order (one norm:
+        its own tensors, nothing concatenated); the first norm's ``eps``,
+        ``training`` and ``sync`` hold for all."""
         shape = [1] * x.dim()
         shape[channel_dim] = -1
-        if not self.training:
-            inv, shift = self.folded()
+        cat = (lambda ts: ts[0]) if len(norms) == 1 else torch.cat
+        weight = cat([n.weight for n in norms])
+        bias = cat([n.bias for n in norms])
+        first = norms[0]
+        if not first.training:
+            inv = torch.rsqrt(cat([n.running_var for n in norms]) + first.eps) * weight
+            shift = bias - cat([n.running_mean for n in norms]) * inv
             return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
         xf = x.float().movedim(channel_dim, -1).reshape(-1, x.shape[channel_dim])
-        mean, var = self._statistics(xf, valid)
-        self._update(mean, var)
+        mean, var = first._statistics(xf, valid)
+        start = 0
+        for n in norms:
+            stop = start + n.weight.shape[0]
+            n._update(mean[start:stop], var[start:stop])
+            start = stop
         if valid is None:
-            mul = torch.rsqrt(var + self.eps) * self.weight
-            y = (x.float() - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+            mul = torch.rsqrt(var + first.eps) * weight
+            y = (x.float() - mean.view(shape)) * mul.view(shape) + bias.view(shape)
             return y.to(x.dtype)
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        shift = self.bias - mean * inv
+        inv = torch.rsqrt(var + first.eps) * weight
+        shift = bias - mean * inv
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
 
     def _statistics(self, xf: torch.Tensor, valid) -> tuple[torch.Tensor, torch.Tensor]:

@@ -3,13 +3,17 @@
 Counterpart of ``PillarFeatureNet`` (pillarnext_tpu/models/pillar_encoder.py:118-246).
 Points get a compact slot each (one stable sort, ops/compact.py); the
 decorated features [raw, xyz - pillar mean xyz, xy - pillar centre] go
-through the PFN into the compact pillar table.  Eval runs both PFN layers
-as kernel 1 on a CUDA tensor (ops/pfn.py), its plain version on the CPU.
+through the PFN into the compact pillar table.  Eval runs a two-layer PFN
+over at most 16 decorated features as kernel 1 on a CUDA tensor
+(ops/pfn.py), its plain version on the CPU, unless ``fuse_eval`` is off.
 Train (``self.training``) runs the layer stack of pillar_encoder.py:48-79
 with batch statistics: Linear, masked BatchNorm, ReLU, mask, and for a
 non-last layer the pillar max broadcast back to the points — kernel 3 on a
 CUDA tensor (ops/segscan.py) — then a concat; the last layer's per-pillar
-max is the table.
+max is the table.  Any other eval PFN (``fuse_eval=False``, a depth other
+than 2, more features; JAX's ``PFNLayer`` stack, pillar_encoder.py:160-216)
+runs the same stack with the running statistics, each non-last layer's
+pillar max gathered back to its points by kernel 2.
 """
 
 from __future__ import annotations
@@ -76,15 +80,10 @@ class PillarFeatureNet(nn.Module):
         pc_range: Sequence[float],
         pillar_capacity: int = 131072,
         output: str = "dense",
+        fuse_eval: bool = True,
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
-        if len(num_filters) != 2:
-            raise NotImplementedError(
-                f"PFN depth {len(num_filters)} not ported yet (two layers only), see ROADMAP"
-            )
-        if num_input_features + 5 > 16:
-            raise NotImplementedError("more than 16 decorated features not ported yet")
         if output not in ("dense", "sparse"):
             raise ValueError(f"output must be 'dense' or 'sparse', got {output!r}")
         self.num_input_features = num_input_features
@@ -95,6 +94,8 @@ class PillarFeatureNet(nn.Module):
         self.train_pillar_capacity = None
         self.output = output
         self.dtype = dtype
+        # kernel 1 serves the eval PFN: two layers, at most 16 decorated features
+        self.kernel_eval = fuse_eval and len(self.num_filters) == 2 and num_input_features + 5 <= 16
         widths = [num_input_features + 5, *self.num_filters]
         self.pfn_layers = nn.ModuleList(
             PFNLayer(widths[i], widths[i + 1], last_layer=(i == len(widths) - 2))
@@ -172,7 +173,7 @@ class PillarFeatureNet(nn.Module):
         if telemetry is not None:
             telemetry["pillar_active"] = n_pillars
             telemetry["pillar_overflow"] = torch.clamp(n_pillars - cap, min=0)
-        if self.training:
+        if self.training or not self.kernel_eval:
             x = feats
             for i, layer in enumerate(self.pfn_layers):
                 x = layer(x, valid, slot, cap, i == len(self.pfn_layers) - 1, plain)

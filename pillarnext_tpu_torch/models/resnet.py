@@ -2,8 +2,9 @@
 package, and the fully sparse 3-D voxel ResNet (eval and train).
 
 Counterpart of ``SparseResNet`` (pillarnext_tpu/models/resnet.py:445-911)
-and of ``SparseResNet3D``'s sparse forward (resnet.py:915-1144), which
-runs the same tables in eval and in training.
+and of ``SparseResNet3D`` (resnet.py:915-1144): its sparse forward, which
+runs the same tables in eval and in training, and its dense forward over
+the dense voxel volume (cuDNN 3-D convs, eval and training).
 
 ``SparseResNet`` takes the reader's SparseBEV, or a dense (B, H, W, C)
 image when its first stage is strided (the reader's ``output="dense"``).
@@ -534,10 +535,12 @@ class SparseResNet3D(nn.Module):
         ``stage{i}_overflow`` of each strided stage and ``extra_active`` /
         ``extra_overflow`` as device scalars; ``plain`` keeps CUDA tensors
         on kernel 2's plain version."""
+        if isinstance(sb, torch.Tensor) and sb.dim() == 5:
+            return self._dense_forward(sb)
         if not isinstance(sb, SparseBEV) or len(sb.spatial) != 3:
             raise TypeError(
                 "SparseResNet3D takes the voxel reader's SparseBEV over (D, H, W) "
-                "(the dense 3-D path is not ported yet, see ROADMAP)"
+                "or its dense (B, D, H, W, C) volume"
             )
         telemetry = {} if telemetry is None else telemetry
         batch, spatial, cap = sb.batch, tuple(sb.spatial), sb.capacity
@@ -587,4 +590,32 @@ class SparseResNet3D(nn.Module):
         dense = out.to_dense(plain=plain)  # (B, D, H, W, C)
         b, d, h, w, c = dense.shape
         return dense.permute(0, 2, 3, 1, 4).reshape(b, h, w, d * c)
+
+    def _dense_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The dense 3-D stack (resnet.py:960-1013) over a (B, D, H, W, C)
+        volume, channels-last in memory: per stage a (k, k, k) conv at
+        stride s with padding k // 2 on every axis, BN, ReLU, then the
+        two-conv residual blocks; the extra (3, 1, 1) / (2, 1, 1) conv with
+        padding 0; the 1x1x1 mapping; the depth-major fold to (B, H', W',
+        D' * C).  The same modules and weights as the sparse path (JAX's
+        dense tree names them ``Conv_i`` / ``BatchNorm_i`` in this call
+        order).  Its BatchNorm is flax's ``nn.BatchNorm``: in training the
+        statistics run over every cell of the volume, empty ones too."""
+
+        def conv(x, weight, stride=1, padding=None):
+            pad = weight.shape[-1] // 2 if padding is None else padding
+            w = weight.to(x.dtype).contiguous(memory_format=torch.channels_last_3d)
+            return F.conv3d(x, w, stride=stride, padding=pad)
+
+        x = x.permute(0, 4, 1, 2, 3)  # (B, C, D, H, W), channels-last in memory
+        for stage, s in zip(self.blocks, self.strides):
+            x = torch.relu(stage[0].norm(conv(x, stage[0].conv.weight, s)))
+            for block in stage[1:]:
+                y = torch.relu(block.block1.norm(conv(x, block.block1.conv.weight)))
+                x = torch.relu(block.norm2(conv(y, block.conv2.weight)) + x)
+        _, stride, padding = EXTRA_Z_DOWN
+        x = torch.relu(self.extra_conv[1](conv(x, self.extra_conv[0].weight, stride, padding)))
+        x = torch.relu(self.mapping.norm(conv(x, self.mapping.conv.weight)))
+        b, c, d, h, w = x.shape
+        return x.permute(0, 3, 4, 2, 1).reshape(b, h, w, d * c)
 

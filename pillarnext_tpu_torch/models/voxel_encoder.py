@@ -1,15 +1,21 @@
 """Voxel reader: 3-D voxelization with a per-voxel mean.
 
-Counterpart of ``VoxelFeatureNet`` (pillarnext_tpu/models/voxel_encoder.py:27-81)
-with ``output="sparse"``: every point gets a compact slot by its linear
-voxel id (one stable sort, ops/compact.py), the table holds the f32 mean of
-each voxel's raw point features cast to the model dtype, and the result is
-a SparseBEV over the (D, H, W) grid for the sparse 3-D backbone.  The
+Counterpart of ``VoxelFeatureNet`` (pillarnext_tpu/models/voxel_encoder.py:27-81):
+every point gets a compact slot by its linear voxel id (one stable sort,
+ops/compact.py) and the table holds the f32 mean of each voxel's raw point
+features cast to the model dtype.  ``output="sparse"`` returns it as a
+SparseBEV over the (D, H, W) grid for the sparse 3-D backbone;
+``output="dense"`` densifies it (kernel 2 on a CUDA tensor) to the
+(B, D, H, W, C) volume of the dense 3-D backbone.  The dense table has
+``min(B * N, B * D * H * W)`` slots: each valid point occupies at most one
+voxel, so it cannot overflow (JAX's dense mean, a scatter over the whole
+volume, has no capacity either).  The
 reader has no parameters, so training runs the eval computation: the JAX
 reader ignores ``train`` and sizes its table by ``voxel_capacity`` in both
 modes (voxel_encoder.py:36-67), and so does this one.  The mean is
-``scatter.segment_mean`` over the slot-sorted points: the same bits on
-every run on the card.
+``scatter.segment_mean`` over the slot-sorted points (kernel 3's sorted
+sum): the same bits on every run on the card; JAX's dense mean adds in
+scatter order, so the two differ by f32 rounding (within 1e-6 relative).
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ from pillarnext_tpu_torch.ops.voxelize import VoxelGrid, voxel_coords, voxel_seg
 
 
 class VoxelFeatureNet(nn.Module):
-    """Points (B, N, D) + mask (B, N) -> SparseBEV over (D, H, W) voxels."""
+    """Points (B, N, D) + mask (B, N) -> SparseBEV over (D, H, W) voxels
+    (``output="sparse"``) or the dense (B, D, H, W, C) volume."""
 
     def __init__(
         self,
@@ -38,11 +45,8 @@ class VoxelFeatureNet(nn.Module):
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
-        if output != "sparse":
-            raise NotImplementedError(
-                f"VoxelFeatureNet output={output!r} (the dense voxel volume) not ported yet, "
-                "see ROADMAP"
-            )
+        if output not in ("dense", "sparse"):
+            raise ValueError(f"output must be 'dense' or 'sparse', got {output!r}")
         self.num_input_features = num_input_features
         self.grid = VoxelGrid.create(voxel_size, pc_range)
         self.voxel_capacity = int(voxel_capacity)
@@ -55,16 +59,21 @@ class VoxelFeatureNet(nn.Module):
         return self.voxel_capacity
 
     def forward(self, points, mask, capacity: int | None = None, telemetry=None, plain=False):
-        """``capacity`` overrides ``voxel_capacity`` (serving buckets);
+        """``capacity`` overrides ``voxel_capacity`` (serving buckets; the
+        dense volume's table is sized by the points instead);
         ``telemetry`` (a dict) receives the occupied-voxel count and the
-        overflow as device scalars.  ``plain`` is accepted for the
-        detector's reader signature: the reader launches no kernel."""
+        overflow as device scalars.  ``plain`` keeps CUDA tensors on kernel
+        2's plain version for the dense volume (the sums run on kernel 3
+        on both routes, as every reader's do)."""
         grid = self.grid
         b, n, d = points.shape
         if d != self.num_input_features:
             raise ValueError(f"points have {d} features, expected {self.num_input_features}")
         nvox = grid.num_voxels
-        cap = min((capacity or self.voxel_capacity) * b, nvox * b)
+        if self.output == "dense":
+            cap = min(b * n, b * nvox)
+        else:
+            cap = min((capacity or self.voxel_capacity) * b, nvox * b)
 
         xyz = points[..., :3].reshape(-1, 3)
         vx, vy, vz, flat_valid = voxel_coords(grid, xyz, mask.reshape(-1))
@@ -84,5 +93,6 @@ class VoxelFeatureNet(nn.Module):
         # the dump row holds the mean of overflowed points: zero it
         table = torch.cat([table[:-1], table.new_zeros((1, d))])
         slot_of_dense, occupied = invert_slot_map(slot_id, b * nvox)
-        return SparseBEV(table, occupied, slot_of_dense, slot_id, b,
+        sbev = SparseBEV(table, occupied, slot_of_dense, slot_id, b,
                          (grid.size_z, grid.size_y, grid.size_x))
+        return sbev if self.output == "sparse" else sbev.to_dense(plain=plain)

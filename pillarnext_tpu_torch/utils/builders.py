@@ -49,8 +49,13 @@ def build_model(model_cfg: dict, device="cuda:0", generator: torch.Generator | N
     global batch, as under JAX's global-view ``jit``; without a group it
     changes nothing.  A pillar reader feeding a SparseResNet that opens with stride 1
     emits its compact table and the backbone runs sparse (the reference's
-    sparse path); a voxel reader always emits its compact table for
-    SparseResNet3D, in eval and in training.  ``train=True`` gives a pillar
+    sparse path); a voxel reader emits its compact table for
+    SparseResNet3D, in eval and in training, unless the config sets its
+    ``output: dense`` (the dense volume and the dense 3-D backbone).  Every
+    other option of the config's modules reaches them as it is (the
+    head's ``fuse_eval`` / ``merge_branches`` / ``merge_tasks``, the
+    reader's ``fuse_eval`` and PFN depth, ``nms_type`` and
+    ``approx_topk``).  ``train=True`` gives a pillar
     reader the config's ``train_pillar_capacity`` for its training forward
     (serving keeps ``pillar_capacity``; the voxel reader keeps
     ``voxel_capacity`` in both, as JAX does) and returns the model in train
@@ -88,8 +93,11 @@ def build_model(model_cfg: dict, device="cuda:0", generator: torch.Generator | N
         rd.setdefault("output", "sparse")
         bb.setdefault("sparse_eval", True)
     if reader_name == "VoxelFeatureNet" and backbone_name == "SparseResNet3D":
-        # the dense (B, 40, 1344, 1344, C) volume would not fit the card; in
-        # training too (JAX utils/builders.py:85-93)
+        # the compact table and the sparse 3-D backbone unless the config
+        # asks for the dense volume (JAX utils/builders.py:85-93); the dense
+        # (1, 40, 1344, 1344, C) path fits the card (chip_smoke.py's
+        # voxel_dense: a 15.5 GB peak, 426 ms a bf16 frame on an H100 80GB)
+        # but takes ~6x the sparse path's frame
         rd.setdefault("output", "sparse")
     check_targets(cfg)
     model = instantiate(cfg, registry=PORT_REGISTRY)

@@ -2,9 +2,13 @@
 
 The port's own copy of ``export_pillarnext``, ``export_voxelnext`` and
 ``export_mvfnext`` and their helpers
-(pillarnext_tpu/utils/torch_import.py:378-649), for the standard
-(non-merged) pillarnet18_aspp, voxel18_aspp and mvf18_aspp layouts.  They write
-the reference checkpoint schema the port's modules use.  Layout conversions:
+(pillarnext_tpu/utils/torch_import.py:378-649), for the pillarnet18_aspp,
+voxel18_aspp and mvf18_aspp layouts: PFN stacks of any depth, the voxel
+backbone's sparse or dense tree, and every head tree (per-branch, a
+SepHead's ``merge_branches`` tree, ``MergedSepHeads``' ``merged`` tree,
+split back into the per-task, per-branch schema).  They write the
+reference checkpoint schema the port's modules use, whichever head option
+the model runs.  Layout conversions:
 
   Dense kernel (in, out)               -> Linear (out, in)
   Conv kernel (kh, kw, in, out)        -> Conv2d (out, in, kh, kw)
@@ -98,33 +102,39 @@ def export_pillarnext(
 
 
 def _export_neck_head(sd, p, s, tasks, common_heads, num_hm_conv=2):
-    """ASPP neck + CenterHead export."""
-    np_, ns = p["neck"], s["neck"]
-    for j in range(2):
-        _inv_conv_block(
-            sd, f"neck.pre_conv.block{j + 1}",
-            np_["BasicBlock_0"][f"ConvBlock_{j}"], ns["BasicBlock_0"][f"ConvBlock_{j}"],
-        )
-    sd["neck.conv1x1.weight"] = _inv_conv_kernel(np_["Conv_0"]["kernel"])
-    sd["neck.weight"] = _inv_conv_kernel(np_["shared_dilated_kernel"])
-    _inv_conv_block(sd, "neck.post_conv", np_["ConvBlock_0"], ns["ConvBlock_0"])
+    """ASPP neck (where the tree has one) + CenterHead export."""
+    if "neck" in p:
+        np_, ns = p["neck"], s["neck"]
+        for j in range(2):
+            _inv_conv_block(
+                sd, f"neck.pre_conv.block{j + 1}",
+                np_["BasicBlock_0"][f"ConvBlock_{j}"], ns["BasicBlock_0"][f"ConvBlock_{j}"],
+            )
+        sd["neck.conv1x1.weight"] = _inv_conv_kernel(np_["Conv_0"]["kernel"])
+        sd["neck.weight"] = _inv_conv_kernel(np_["shared_dilated_kernel"])
+        _inv_conv_block(sd, "neck.post_conv", np_["ConvBlock_0"], ns["ConvBlock_0"])
 
     hp, hs = p["head"], s["head"]
     sd["head.shared_conv.0.weight"] = _inv_conv_kernel(hp["shared_conv"]["kernel"])
     sd["head.shared_conv.0.bias"] = np.asarray(hp["shared_conv"]["bias"])
     _inv_bn(sd, "head.shared_conv.1", hp["shared_bn"], hs["shared_bn"])
+    if "merged" in hp:
+        hp, hs = _split_merged_tasks(hp["merged"], hs["merged"], tasks, common_heads)
 
     for ti, task in enumerate(tasks):
         tp, tsd = hp[f"task_{ti}"], hs[f"task_{ti}"]
-        sd[f"head.tasks.{ti}.deblock.conv.weight"] = _inv_conv_transpose_kernel(
-            tp["ConvTransposeBlock_0"]["ConvTranspose_0"]["kernel"]
-        )
-        _inv_bn(
-            sd, f"head.tasks.{ti}.deblock.norm",
-            tp["ConvTransposeBlock_0"]["BatchNorm_0"], tsd["ConvTransposeBlock_0"]["BatchNorm_0"],
-        )
+        if "ConvTransposeBlock_0" in tp:  # stride > 1
+            sd[f"head.tasks.{ti}.deblock.conv.weight"] = _inv_conv_transpose_kernel(
+                tp["ConvTransposeBlock_0"]["ConvTranspose_0"]["kernel"]
+            )
+            _inv_bn(
+                sd, f"head.tasks.{ti}.deblock.norm",
+                tp["ConvTransposeBlock_0"]["BatchNorm_0"], tsd["ConvTransposeBlock_0"]["BatchNorm_0"],
+            )
         branches = dict(common_heads)
         branches["hm"] = (len(task), num_hm_conv)
+        if "branch1" in tp:
+            tp, tsd = _split_merged_branches(tp, tsd, branches)
         for bname, (_n_out, n_conv) in branches.items():
             bp, bs = tp[bname], tsd[bname]
             ci = 0
@@ -147,6 +157,74 @@ def _export_neck_head(sd, p, s, tasks, common_heads, num_hm_conv=2):
     return sd
 
 
+def _split(x, sizes) -> list:
+    """``x`` cut along its last axis into consecutive pieces of ``sizes``."""
+    return np.split(np.asarray(x), np.cumsum(sizes)[:-1], axis=-1)
+
+
+def _split_bn(p, s, sizes) -> tuple[list, list]:
+    """A BatchNorm over concatenated channels -> per-piece (params, stats)."""
+    ps = zip(*(_split(p[k], sizes) for k in ("scale", "bias")))
+    ss = zip(*(_split(s[k], sizes) for k in ("mean", "var")))
+    return ([{"scale": a, "bias": b} for a, b in ps], [{"mean": m, "var": v} for m, v in ss])
+
+
+def _branch_tree(k1, b1, bn_p, bn_s, k2, b2) -> tuple[dict, dict]:
+    """One two-conv branch as MLPHead's tree (Conv_0, BatchNorm_0, Conv_1)."""
+    return ({"Conv_0": {"kernel": k1, "bias": b1}, "BatchNorm_0": bn_p, "Conv_1": {"kernel": k2, "bias": b2}},
+            {"BatchNorm_0": bn_s})
+
+
+def _split_merged_branches(tp, tsd, branches) -> tuple[dict, dict]:
+    """SepHead(merge_branches)'s ``branch1`` / ``bn1`` / ``out_<name>``
+    (centerhead.py:96-131) -> per-branch MLPHead trees: the inverse of the
+    JAX importer's concatenation (utils/torch_import.py:307-330)."""
+    names = list(branches)
+    hc = np.shape(tp["branch1"]["kernel"])[-1] // len(names)
+    sizes = [hc] * len(names)
+    k1, b1 = _split(tp["branch1"]["kernel"], sizes), _split(tp["branch1"]["bias"], sizes)
+    bn_p, bn_s = _split_bn(tp["bn1"], tsd["bn1"], sizes)
+    p, s = {}, {}
+    for i, name in enumerate(names):
+        out = tp[f"out_{name}"]
+        p[name], s[name] = _branch_tree(k1[i], b1[i], bn_p[i], bn_s[i], out["kernel"], out["bias"])
+    return p, s
+
+
+def _split_merged_tasks(mp, ms, tasks, common_heads) -> tuple[dict, dict]:
+    """MergedSepHeads' tree (centerhead.py:217-300: ``deblock`` over T * 64
+    channels, ``branch1`` / ``bn1`` task-major over T * R * 64, per branch a
+    grouped ``out_<name>`` with hm padded to the largest class count) ->
+    per-task SepHead trees: the inverse of the JAX importer's
+    ``_import_merged_head`` (utils/torch_import.py:110-196)."""
+    t = len(tasks)
+    branches = {k: int(v[0]) for k, v in common_heads.items()}
+    branches["hm"] = max(len(task) for task in tasks)
+    names = list(branches)
+    hc = np.shape(mp["branch1"]["kernel"])[-1] // (t * len(names))
+    p = {f"task_{ti}": {} for ti in range(t)}
+    s = {f"task_{ti}": {} for ti in range(t)}
+    if "deblock" in mp:
+        kernels = _split(mp["deblock"]["ConvTranspose_0"]["kernel"], [hc] * t)
+        bn_p, bn_s = _split_bn(mp["deblock"]["BatchNorm_0"], ms["deblock"]["BatchNorm_0"], [hc] * t)
+        for ti in range(t):
+            p[f"task_{ti}"]["ConvTransposeBlock_0"] = {"ConvTranspose_0": {"kernel": kernels[ti]},
+                                                      "BatchNorm_0": bn_p[ti]}
+            s[f"task_{ti}"]["ConvTransposeBlock_0"] = {"BatchNorm_0": bn_s[ti]}
+    sizes = [hc] * (t * len(names))
+    k1, b1 = _split(mp["branch1"]["kernel"], sizes), _split(mp["branch1"]["bias"], sizes)
+    bn_p, bn_s = _split_bn(mp["bn1"], ms["bn1"], sizes)
+    for bi, name in enumerate(names):
+        c_out = branches[name]
+        k2, b2 = _split(mp[f"out_{name}"]["kernel"], [c_out] * t), _split(mp[f"out_{name}"]["bias"], [c_out] * t)
+        for ti, task in enumerate(tasks):
+            width = len(task) if name == "hm" else c_out
+            j = ti * len(names) + bi
+            p[f"task_{ti}"][name], s[f"task_{ti}"][name] = _branch_tree(
+                k1[j], b1[j], bn_p[j], bn_s[j], k2[ti][..., :width], b2[ti][:width])
+    return p, s
+
+
 def _inv_conv3d_kernel(k) -> np.ndarray:
     """flax Conv3d (kz,ky,kx,I,O) -> torch Conv3d (O,I,kz,ky,kx)."""
     return np.ascontiguousarray(np.transpose(np.asarray(k), (4, 3, 0, 1, 2)))
@@ -166,12 +244,17 @@ def export_voxelnext(
     tree of JAX ``SparseResNet3D``) -> a reference-named state_dict:
     ``backbone.blocks.{i}.{j}...``, ``backbone.extra_conv.{0,1}``,
     ``backbone.mapping.{conv,norm}``, then the neck and head.  The reader
-    has no parameters; a tree without ``neck`` exports the backbone only.
+    has no parameters; a tree without ``head`` exports the backbone only.
     The BEV folds depth-major (the JAX package's order), so a checkpoint
     trained by the reference would also need its neck input permuted."""
     p, s = params, batch_stats
     sd: dict[str, np.ndarray] = {}
     bp, bs = p["backbone"], s["backbone"]
+    if "Conv_0" in bp:
+        _export_dense_3d(sd, bp, bs, layer_nums)
+        if "head" in p:
+            _export_neck_head(sd, p, s, tasks, common_heads, num_hm_conv)
+        return sd
 
     for si, (n_blocks, stride) in enumerate(zip(layer_nums, ds_layer_strides)):
         if stride == 1:
@@ -205,9 +288,28 @@ def export_voxelnext(
     )[:, :, None, None, None]
     _inv_bn(sd, "backbone.mapping.norm", bp["mapping_bn"], bs["mapping_bn"])
 
-    if "neck" in p:
+    if "head" in p:
         _export_neck_head(sd, p, s, tasks, common_heads, num_hm_conv)
     return sd
+
+
+def _export_dense_3d(sd, bp, bs, layer_nums) -> None:
+    """JAX's dense ``SparseResNet3D`` tree (resnet.py:960-1013, auto-named
+    ``Conv_i`` / ``BatchNorm_i`` in call order: each stage's strided conv,
+    then each residual block's two convs, the extra z-conv, the mapping)
+    onto the modules of the sparse path, which the dense forward reads."""
+    blocks = []  # (conv weight key, BN prefix) in JAX's call order
+    for si, n_blocks in enumerate(layer_nums):
+        blocks.append((f"backbone.blocks.{si}.0.conv.weight", f"backbone.blocks.{si}.0.norm"))
+        for bi in range(n_blocks):
+            prefix = f"backbone.blocks.{si}.{bi + 1}"
+            blocks += [(f"{prefix}.block1.conv.weight", f"{prefix}.block1.norm"),
+                       (f"{prefix}.conv2.weight", f"{prefix}.norm2")]
+    blocks += [("backbone.extra_conv.0.weight", "backbone.extra_conv.1"),
+               ("backbone.mapping.conv.weight", "backbone.mapping.norm")]
+    for i, (weight, norm) in enumerate(blocks):
+        sd[weight] = _inv_conv3d_kernel(bp[f"Conv_{i}"]["kernel"])
+        _inv_bn(sd, norm, bp[f"BatchNorm_{i}"], bs[f"BatchNorm_{i}"])
 
 
 def export_mvfnext(
@@ -233,7 +335,7 @@ def export_mvfnext(
     _inv_point_layer(sd, "reader.pointnet1", rp["pointnet1"], rs["pointnet1"])
     _inv_point_layer(sd, "reader.pointnet2", rp["pointnet2"], rs["pointnet2"])
 
-    if "neck" in p:  # reader-only trees allowed (tests)
+    if "head" in p:  # reader-only trees allowed (tests)
         _export_neck_head(sd, p, s, tasks, common_heads, num_hm_conv)
     return sd
 

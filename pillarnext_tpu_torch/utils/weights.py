@@ -55,7 +55,10 @@ def state_dict_from_jax(model: nn.Module, params, batch_stats) -> dict[str, torc
     """The port's state_dict for a pillar (flagship-structured), voxel
     (voxel18-structured) or MVF (mvf18-structured) detector from JAX
     ``params`` / ``batch_stats`` trees of numpy-convertible arrays; the
-    reader's type picks the exporter."""
+    reader's type picks the exporter.  Any PFN depth, the voxel backbone's
+    sparse or dense tree, a neck-less tree, and the head's per-branch,
+    ``merge_branches`` or ``merge_tasks`` tree all land in the one
+    reference schema, which every head option of the port reads."""
     head = model.head
     neck_head = dict(tasks=head.class_names, common_heads=head.common_heads,
                      num_hm_conv=head.num_hm_conv)

@@ -143,6 +143,41 @@ def test_backbone_mode_lists_build_their_modes():
     assert build_model(load_experiment(FLAGSHIP, OVERRIDES)["model"], device="cpu").backbone.sparse_eval
 
 
+def test_option_lists_build_their_options():
+    """Each override of the option paths resolves on the flagship YAML
+    (narrowed here) and builds the option; the dense voxel paths' overrides
+    build voxel18 with the dense volume, the training one on a 40 x 672 x
+    672 grid at the config's voxel size."""
+    from pillarnext_tpu_torch.utils.builders import build_model
+    from pillarnext_tpu_torch.utils.config import load_experiment
+    from tests.test_torch_port_e2e import FLAGSHIP, OVERRIDES
+
+    assert set(chip_smoke.SAME_FUNCTION) < set(chip_smoke.OPTION_PATHS)
+    narrow = [o for o in OVERRIDES if "num_filters=[16,16]" not in o]
+    checks = {
+        "serving_head_unfused": lambda m: not any(t.fuse_eval for t in m.head.tasks),
+        "serving_merge_branches": lambda m: all(t.merge_branches for t in m.head.tasks),
+        "serving_merge_tasks": lambda m: m.head.merge_tasks,
+        "serving_pfn_unfused": lambda m: not m.reader.kernel_eval and len(m.reader.pfn_layers) == 2,
+        "serving_pfn3": lambda m: not m.reader.kernel_eval and len(m.reader.pfn_layers) == 3,
+        "serving_circle_nms": lambda m: m.post_processing["nms_type"] == "circle",
+        "serving_approx_topk": lambda m: m.post_processing["approx_topk"],
+        "train_merge_tasks": lambda m: m.head.merge_tasks,
+        "train_merge_branches": lambda m: all(t.merge_branches for t in m.head.tasks),
+    }
+    for path, override in {**chip_smoke.OPTION_PATHS, **chip_smoke.OPTION_TRAIN}.items():
+        width = ["model.reader.num_filters=[16,16]"] if path != "serving_pfn3" else []
+        model = build_model(load_experiment(FLAGSHIP, narrow + width + [override])["model"], device="cpu")
+        assert checks[path](model), path
+    default = build_model(load_experiment(FLAGSHIP, OVERRIDES)["model"], device="cpu")
+    assert default.reader.kernel_eval and all(t.fuse_eval for t in default.head.tasks)
+    for overrides, grid in (([chip_smoke.VOXEL_DENSE], (40, 1344, 1344)), (chip_smoke.VOXEL_DENSE_TRAIN, (40, 672, 672))):
+        cfg = load_experiment(chip_smoke.VOXEL18, overrides)["model"]
+        model = build_model(cfg, device="cpu")
+        assert model.reader.output == "dense"
+        assert (model.reader.grid.size_z, model.reader.grid.size_y, model.reader.grid.size_x) == grid
+
+
 def test_f32_agreement_holds_the_backbone_output_at_1e3():
     g = torch.Generator().manual_seed(0)
     ref = torch.randn(1, 8, 8, 16, generator=g) * 10

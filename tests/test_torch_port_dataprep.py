@@ -23,6 +23,7 @@
 
 from __future__ import annotations
 
+import logging
 import pickle
 import sys
 from pathlib import Path
@@ -57,6 +58,20 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def port_logger_restored():
+    """``cli.train`` gives the port's logger a handler of its own and stops
+    its propagation for the whole process (``cli.train.setup_logging``);
+    put the logger back after this file, so that a later test file in the
+    same worker still captures its records through the root logger."""
+    log = logging.getLogger("pillarnext_tpu_torch")
+    level, handlers, propagate = log.level, list(log.handlers), log.propagate
+    yield
+    log.setLevel(level)
+    log.handlers[:] = handlers
+    log.propagate = propagate
 
 
 def assert_same(got, want, where: str = "") -> None:

@@ -410,6 +410,7 @@ print(json.dumps({"calls": calls, "loaded": sorted(m for m in sys.modules if for
 @pytest.mark.parametrize("module", [
     "pillarnext_tpu_torch.cli.create_data",
     "pillarnext_tpu_torch.cli.create_gt_database",
+    "pillarnext_tpu_torch.cli.calibrate_capacity",
     "pillarnext_tpu_torch.data.nusc_converter",
     "pillarnext_tpu_torch.data.waymo_converter",
 ])
@@ -486,3 +487,88 @@ def test_port_tile_and_moderate_modules_import_no_jax(module):
         assert result["result"] == {"tiles": 4, "grad": True}
     else:
         assert result["result"]["overflow"] == 0 and result["result"]["loss"] == result["result"]["loss"]
+
+
+OPTIONS = {
+    "head_unfused": ["+model.head.fuse_eval=false"],
+    "merge_branches": ["+model.head.merge_branches=true"],
+    "merge_tasks": ["+model.head.merge_tasks=true"],
+    "pfn_unfused": ["+model.reader.fuse_eval=false"],
+    "pfn3": ["model.reader.num_filters=[16,16,16]"],
+    "circle_nms": ["model.post_processing.nms_type=circle"],
+    "approx_topk": ["model.post_processing.approx_topk=true"],
+    "voxel_dense": ["+model.reader.output=dense"],
+}
+
+OPTIONS_SCRIPT = r"""
+import contextlib, io, json, sys
+import torch
+from pillarnext_tpu_torch.cli import calibrate_capacity
+from pillarnext_tpu_torch.serving import AdaptivePredictor
+from pillarnext_tpu_torch.utils.builders import build_model
+from pillarnext_tpu_torch.utils.config import load_experiment
+from pillarnext_tpu_torch.utils.synth import lidar_like_points
+
+flagship, voxel18, options = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+pc = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
+narrow = {
+    flagship: [f"model.reader.pc_range={pc}", "model.reader.voxel_size=[0.25,0.25,8.0]",
+               "model.reader.num_filters=[16,16]", "model.reader.pillar_capacity=4096",
+               "model.backbone.ds_num_filters=[16,32,32,32]", "model.backbone.num_input_features=16",
+               "+model.backbone.out_channels=32", "model.neck.in_channels=32",
+               "model.head.in_channels=32", "+model.head.share_conv_channel=32"],
+    voxel18: [f"model.reader.pc_range={pc}", "model.reader.voxel_size=[0.5,0.5,0.2]",
+              "model.reader.voxel_capacity=4096", "model.backbone.ds_num_filters=[8,12,16,16]",
+              "model.backbone.out_channels=16", "model.neck.in_channels=32",
+              "model.head.in_channels=32", "+model.head.share_conv_channel=32"],
+}
+pts, mask = lidar_like_points(1, 2000, pc, seed=0)
+results = {}
+for name, overrides in options.items():
+    path = voxel18 if name == "voxel_dense" else flagship
+    cfg = load_experiment(path, narrow[path] + overrides)
+    model = build_model(cfg["model"], device="cpu", generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        out = AdaptivePredictor(model).predict(torch.from_numpy(pts), torch.from_numpy(mask))
+    results[name] = [list(out["box3d_lidar"].shape), bool(torch.isfinite(out["box3d_lidar"]).all())]
+text = io.StringIO()
+with contextlib.redirect_stdout(text):
+    calibrate_capacity.main(["--config", flagship, "--frames", "1", "--points", "2000"])
+
+def foreign(name):
+    top = name.split(".")[0]
+    return top.startswith("jax") or top.startswith("flax") or top == "pillarnext_tpu"
+
+print(json.dumps({"results": results, "calibrate": text.getvalue(),
+                  "loaded": sorted(m for m in sys.modules if foreign(m))}))
+"""
+
+
+@pytest.fixture(scope="module")
+def options_run():
+    """One fresh interpreter that imports only the port: a predict of the
+    narrowed flagship (voxel18 for the dense volume) with each option of
+    ``OPTIONS``, then the capacity calibration CLI on one synthetic frame."""
+    configs = REPO / "pillarnext_tpu/configs/experiments"
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", OPTIONS_SCRIPT, str(configs / "nusc_det_pp18_aspp_iou_sp.yaml"),
+         str(configs / "nusc_det_voxel18_aspp_iou_sp.yaml"), json.dumps(OPTIONS)],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("option", [*OPTIONS, "calibrate_capacity"])
+def test_port_options_import_no_jax(option, options_run):
+    """A predict with each option the port gained beside the defaults (the
+    head unfused and merged, the PFN stack, circle NMS, approx_topk, the
+    dense voxel volume), and the calibration CLI, load no JAX or JAX
+    package."""
+    assert options_run["loaded"] == []
+    if option == "calibrate_capacity":
+        assert "recommended reader.pillar_capacity" in options_run["calibrate"]
+        return
+    shape, finite = options_run["results"][option]
+    assert shape[0] == 1 and shape[2] == 9 and finite

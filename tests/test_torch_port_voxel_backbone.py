@@ -9,7 +9,7 @@ ATen) and every stage counter is equal.  Two grids: the 32 x 32 x 24 grid
 of tests/test_voxel_mirror_parity.py (final depth 1) and the same x/y
 with the config's 0.2 m over 8 m in z (40 levels, final depth 2, so the
 depth-major fold is exercised); and one case whose stage tables overflow.
-Training runs the same sparse forward; a dense input raises.
+Training runs the same sparse forward; a dense volume runs the dense one.
 """
 
 from __future__ import annotations
@@ -111,7 +111,9 @@ def test_sparse_resnet3d_stage_overflow_counters_match_jax():
 
 def test_sparse_resnet3d_train_and_dense_input_raise():
     """Training runs the sparse forward (batch statistics update the
-    running ones); a dense volume still raises, in train and eval mode."""
+    running ones); a dense volume runs the dense forward (held against JAX
+    in tests/test_torch_port_dense3d.py), in train and eval mode; any other
+    input raises."""
     voxel, pc, (d, h, w) = GRIDS["config_z_40x32x32"]
     pts, mask = make_points(pc)
     reader = VoxelFeatureNet(voxel, pc, voxel_capacity=2048, output="sparse")
@@ -122,5 +124,6 @@ def test_sparse_resnet3d_train_and_dense_input_raise():
     assert int(tel["extra_active"]) > 0
     assert not torch.equal(bb.mapping.norm.running_mean, torch.zeros(OUT_CH))
     for mode in (bb.train(), bb.eval()):
-        with pytest.raises(TypeError, match="ROADMAP"):
-            mode(torch.zeros(1, 4, 4, 4, 5))
+        assert mode(torch.zeros(1, 24, 4, 4, 5)).shape == (1, 1, 1, OUT_CH)
+        with pytest.raises(TypeError, match="dense"):
+            mode(torch.zeros(1, 4, 4, 5))

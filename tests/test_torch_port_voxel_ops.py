@@ -95,8 +95,14 @@ def test_voxel_reader_capacity_argument_and_dense_output():
     assert reader.capacity == 2048
     sb = reader(torch.from_numpy(pts), torch.from_numpy(mask), capacity=300)
     assert sb.capacity == 300 * B
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VoxelFeatureNet(VOXEL, PC_RANGE, output="dense")
+    # the dense volume is the sparse table densified (its own table cannot overflow)
+    dense = VoxelFeatureNet(VOXEL, PC_RANGE, output="dense")(torch.from_numpy(pts), torch.from_numpy(mask))
+    full = VoxelFeatureNet(VOXEL, PC_RANGE, voxel_capacity=2048, output="sparse")(
+        torch.from_numpy(pts), torch.from_numpy(mask))
+    assert dense.shape == (B, *GRID, 5)
+    assert torch.equal(dense, full.to_dense())
+    with pytest.raises(ValueError, match="output"):
+        VoxelFeatureNet(VOXEL, PC_RANGE, output="volume")
 
 
 def _active_set_3d(seed, n_sites, cap):
