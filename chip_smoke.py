@@ -99,6 +99,25 @@ width, random weights from a seed:
   latency frames; its f32 BEV bit-identical between the kernels and
   their plain versions; train_voxel_dense: the same model trained,
   B = 2, on a 40 x 672 x 672 grid, ``VOXEL_DENSE_TRAIN_STEPS`` steps;
+- every train path recomputes in the backward what JAX remats: each
+  sparse and strided block keeping its sparse convs' outputs
+  (``remat_save_conv_out``, the default), each tile block and the ASPP
+  neck keeping their inputs; train_no_save_conv_out: the flagship with
+  JAX's other policy, B = 4; train_waymo_voxel18_b8: Waymo voxel18 at
+  B = ``LARGE_BATCH``; recompute_block_check: one full-width SubM
+  residual block of the flagship and one of voxel18, on the tables of a
+  train step, run bare and recomputed under both policies (output, input
+  gradient and parameter gradients: bitwise or their largest
+  difference; the outputs must be the same bits);
+- reference_checkpoint: ``cli.train``'s weights written in the
+  reference's checkpoint layout (``state_dict``, ``module.``, spconv's
+  (O, kH, kW, I) sparse kernels, ``num_batches_tracked``), imported by
+  ``cli.import_checkpoint``: the same tensors, ``cli.test``'s detections
+  the bits of ``cli.train``'s, one served frame the bits of the source
+  model's;
+- overfit_flagship: ``tools.overfit_sanity`` on the flagship at its
+  1344^2 grid, ``OVERFIT_STEPS`` steps on JAX's planted scene, which
+  must meet JAX's bar (the loss halves, 8 of 10 objects within 2 m);
 
 then holds each kernel against its plain PyTorch version at the shapes
 those paths give it.  Kernel 3 (``sorted_segment_bcast``) also carries
@@ -156,6 +175,7 @@ PROFILED_CALLS = 20
 PROFILE_WINDOWS = 8  # torch.profiler at times loses a whole window's records
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel, launched between profiled calls
 LATENCY_FRAMES = 10
+FRAME_PROFILE_CALLS = 2  # each path's profiled predicts (and reader + backbone calls) at the end
 TRAIN_STEPS = 5
 CLI_SAMPLES = 8  # train and val samples of the CLIs' nuScenes tree
 DDP_BF16_STEPS = 3
@@ -206,7 +226,11 @@ MIN_MATCHED = 0.99  # of the f32 detections, against the default path's
 OPTION_TRAIN = {
     "train_merge_tasks": "+model.head.merge_tasks=true",
     "train_merge_branches": "+model.head.merge_branches=true",
+    # JAX's other remat policy: each sparse block keeps only its input
+    "train_no_save_conv_out": "+model.backbone.remat_save_conv_out=false",
 }
+LARGE_BATCH = 8  # train_waymo_voxel18_b8: what the recompute's memory buys
+OVERFIT_STEPS = 300  # overfit_flagship: JAX's default (tools/overfit_sanity.py)
 # voxel18 with the dense (B, D, H, W, C) volume and the dense 3-D backbone:
 # served at the config's 40 x 1344 x 1344 grid, trained on a 40 x 672 x 672 one
 VOXEL_DENSE = "+model.reader.output=dense"
@@ -1285,6 +1309,146 @@ def train_modes(batches, device) -> dict:
     return out
 
 
+def first_block_call(model_cfg, batch, device, forward) -> tuple:
+    """(block, arguments) of the first ``forward`` block of a bf16 training
+    forward (reader and backbone) of ``model_cfg`` on ``batch``: a block's
+    tables as one train step builds them."""
+    from pillarnext_tpu_torch.models import resnet
+    from pillarnext_tpu_torch.train.trainer import batch_to_device
+    from pillarnext_tpu_torch.utils.builders import build_model
+
+    model = build_model(model_cfg, device=device, generator=torch.Generator().manual_seed(0), train=True)
+    real, calls = resnet.run_block, []
+
+    def spy(fwd, block, *args, remat=None):
+        if fwd is forward and not calls:
+            calls.append((block, tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args)))
+        return real(fwd, block, *args, remat=remat)
+
+    resnet.run_block = spy
+    try:
+        ex = batch_to_device(batch, device)
+        with torch.no_grad():
+            model.backbone(model.reader(ex["points"], ex["points_mask"]))
+    finally:
+        resnet.run_block = real
+    if not calls:
+        raise AssertionError(f"a training forward ran no {forward.__name__}")
+    return calls[0]
+
+
+def recompute_block_check(name: str, model_cfg, batch, device) -> None:
+    """One SubM residual block at full width, on the tables of one training
+    forward of ``model_cfg``, run bare and recomputed (``run_block`` with
+    the ``remat_save_conv_out`` policy on and off), forward and backward of
+    one seeded cotangent: prints whether the output, the input gradient and
+    every parameter gradient are bitwise equal to the bare block's, and
+    the largest difference of each.  Raises if an output differs or a
+    gradient is not finite."""
+    import copy
+
+    from pillarnext_tpu_torch.models import resnet
+
+    block, args = first_block_call(model_cfg, batch, device, resnet.sparse_residual_block)
+    x0, rest = args[0], args[1:]
+    results = {}
+    for remat in (None, True, False):
+        b = copy.deepcopy(block).train()
+        x = x0.clone().requires_grad_()
+        y = resnet.run_block(resnet.sparse_residual_block, b, x, *rest, remat=remat)
+        g = torch.randn(y.shape, generator=torch.Generator().manual_seed(1)).to(device, y.dtype)
+        y.backward(g)
+        results[remat] = {"output": y.detach(), "input_grad": x.grad,
+                          **{f"{k}.grad": p.grad for k, p in b.named_parameters()}}
+        del b, x, y, g
+    rec = {"phase": "recompute_block_check", "block": name, "rows": int(x0.shape[0]),
+           "channels": int(x0.shape[1]), "dtype": str(x0.dtype).removeprefix("torch."),
+           "active_rows": int(rest[0].sum())}
+    failures = []
+    bare = results[None]
+    for remat, key in ((True, "save_conv_out"), (False, "no_save_conv_out")):
+        got = results[remat]
+        rec[key] = {"bitwise_equal": {k: torch.equal(got[k], bare[k]) for k in bare},
+                    "max_abs_diff": {k: float((got[k].float() - bare[k].float()).abs().max()) for k in bare}}
+        if not torch.equal(got["output"], bare["output"]):
+            failures.append(f"{key}: the output differs from the bare block's")
+        failures += [f"{key}: {k} not finite" for k in got if not torch.isfinite(got[k]).all()]
+    emit(rec)
+    if failures:
+        raise AssertionError(f"recompute_block_check {name}: {failures}")
+
+
+def reference_checkpoint(common: list, tmp: Path, overrides: list, counters, trained, device) -> dict:
+    """A checkpoint in the reference's layout (under ``state_dict``, keys
+    prefixed ``module.``, the sparse backbone's kernels in spconv's (O, kH,
+    kW, I), a ``num_batches_tracked`` beside each BatchNorm) of
+    ``cli.train``'s weights (seed 0, two steps), sent through
+    ``cli.import_checkpoint``: the imported tensors must be the source's
+    bits, ``cli.test`` of the imported checkpoint must give the bits of
+    ``cli.train``'s detections, and one frame served from it the bits of
+    the source model's frame.  Returns the ``cli.test`` run's launches."""
+    from pillarnext_tpu_torch.cli import import_checkpoint
+    from pillarnext_tpu_torch.serving import AdaptivePredictor
+    from pillarnext_tpu_torch.train import checkpoint as ckpt_lib
+    from pillarnext_tpu_torch.utils.builders import build_model
+    from pillarnext_tpu_torch.utils.config import load_experiment
+
+    source = ckpt_lib.load_checkpoint(tmp / "work/checkpoints/epoch_1.pt")["model"]
+    sd = {}
+    for k, v in source.items():
+        sd["module." + k] = v.permute(0, 2, 3, 1).contiguous() if k.startswith("backbone.blocks.") and v.dim() == 4 else v
+        if k.endswith(".running_var"):
+            sd["module." + k.removesuffix("running_var") + "num_batches_tracked"] = torch.tensor(2)
+    torch.save({"state_dict": sd, "epoch": 1}, tmp / "reference.pth")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        path = import_checkpoint.main([*common[:2], "--torch-checkpoint", str(tmp / "reference.pth"),
+                                       "--out", str(tmp / "imported"), *common[2:], *overrides])
+    import_s = time.perf_counter() - t0
+    imported = ckpt_lib.load_checkpoint(path)["model"]
+    same_tensors = imported.keys() == source.keys() and all(torch.equal(imported[k], source[k]) for k in source)
+    launches = cli_test_run("reference_checkpoint_cli_test", common, tmp, overrides, counters, trained,
+                            "scorer_seconds", checkpoint=path)
+    cfg = load_experiment(FLAGSHIP, overrides)
+    frame_out = []
+    for weights in (source, imported):
+        model = build_model(cfg["model"], device=device)
+        model.load_state_dict(weights, strict=True)
+        with torch.inference_mode():
+            frame_out.append(AdaptivePredictor(model).predict(*frame(cfg["model"]["reader"]["pc_range"], 0, device)))
+        del model
+    same_frame = same_prediction(*frame_out)
+    emit({"phase": "reference_checkpoint", "tensors": len(sd), "import_seconds": import_s,
+          "imported_tensors_bit_identical": same_tensors, "frame_detections": int(frame_out[0]["valid"][0].sum()),
+          "frame_bit_identical": same_frame})
+    if not (same_tensors and same_frame):
+        raise AssertionError(f"reference_checkpoint: tensors identical {same_tensors}, frame identical {same_frame}")
+    return launches
+
+
+def overfit_flagship(device) -> dict:
+    """The port's ``tools.overfit_sanity`` on the flagship as its YAML gives
+    it (1344^2, bf16): ``OVERFIT_STEPS`` Trainer steps on JAX's planted
+    scene, then JAX's bar (the loss halves, 8 of 10 objects within 2 m),
+    which raises if it is not met.  Returns the run's launches."""
+    from pillarnext_tpu_torch.tools import overfit_sanity
+
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters:
+        k.launches = 0
+    with contextlib.redirect_stdout(sys.stderr):
+        result = overfit_sanity.run("flagship", OVERFIT_STEPS, device, log=lambda s: print(s, file=sys.stderr))
+    launches = {k.__name__: k.launches for k in counters}
+    emit({"phase": "main_path", "path": "overfit_flagship", **result,
+          "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20, "launches": launches})
+    overfit_sanity.check(result)
+    for name in KERNELS[1:]:
+        if not launches[name]:
+            raise AssertionError(f"overfit_flagship never launched {name}")
+    return launches
+
+
 def f32_predict(model_cfg, points, mask, device) -> dict:
     """One f32 predict of ``model_cfg`` with random weights from seed 0."""
     from pillarnext_tpu_torch.utils.builders import build_model
@@ -1630,11 +1794,12 @@ def cli_train_run(common: list, work: Path, overrides: list, counters) -> tuple:
     return trained, rec, failures, val["result"], inst["first_batch"]
 
 
-def cli_test_run(path: str, common: list, tmp: Path, overrides: list, counters, trained, scorer_key: str) -> dict:
-    """``cli.test.main`` on ``cli_train_run``'s checkpoint under
-    ``tmp/work``: emits ``path``'s record and raises unless kernels 1 and
-    2 launched and its detections are the bits of ``trained``'s; returns
-    its launches."""
+def cli_test_run(path: str, common: list, tmp: Path, overrides: list, counters, trained, scorer_key: str,
+                 checkpoint=None) -> dict:
+    """``cli.test.main`` on ``checkpoint`` (``cli_train_run``'s under
+    ``tmp/work`` by default): emits ``path``'s record and raises unless
+    kernels 1 and 2 launched and its detections are the bits of
+    ``trained``'s; returns its launches."""
     import numpy as np
 
     from pillarnext_tpu_torch.cli import test as cli_test
@@ -1643,7 +1808,7 @@ def cli_test_run(path: str, common: list, tmp: Path, overrides: list, counters, 
         k.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(sys.stderr):
-        tested = cli_test.main([*common, "--checkpoint", str(tmp / "work/checkpoints/epoch_1.pt"),
+        tested = cli_test.main([*common, "--checkpoint", str(checkpoint or tmp / "work/checkpoints/epoch_1.pt"),
                                 "--work-dir", str(tmp / f"{path}_work"), *overrides])
     test_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in counters}
@@ -1668,7 +1833,7 @@ def cli_test_run(path: str, common: list, tmp: Path, overrides: list, counters, 
     return launches
 
 
-def cli_paths(device) -> tuple[dict, dict, dict]:
+def cli_paths(device) -> tuple[dict, dict, dict, dict]:
     """The port's CLIs in this process on a nuScenes-format tree written
     here (``write_nuscenes_tree``): ``cli.train`` on the flagship as its
     YAML gives it (1344^2, B = 4, 300000 points, bf16, its GT paste and
@@ -1684,6 +1849,8 @@ def cli_paths(device) -> tuple[dict, dict, dict]:
     (``cli_ddp_worker``), one epoch and its evaluation on the same tree;
     each rank must take half of ``cli.train``'s steps, one checkpoint must
     be written, and rank 0 must score every val token exactly once.
+    Between them ``reference_checkpoint`` imports ``cli.train``'s weights
+    written in the reference's layout and scores them with ``cli.test``.
     Returns the launches of each CLI run (``cli_train_ddp``: summed over
     its ranks)."""
     import os
@@ -1724,10 +1891,11 @@ def cli_paths(device) -> tuple[dict, dict, dict]:
             raise AssertionError(f"cli_train: {failures}")
         launches = rec["launches"]
         test_launches = cli_test_run("cli_test", common, tmp, overrides, counters, trained, "scorer_seconds")
+        ref_launches = reference_checkpoint(common, tmp, overrides, counters, trained, device)
         ddp_launches = cli_train_ddp(tmp, common, overrides, trained, rec["cli_seconds"])
         del trained
     torch.cuda.empty_cache()
-    return launches, test_launches, ddp_launches
+    return launches, test_launches, ref_launches, ddp_launches
 
 
 def write_waymo_tree(root: Path, pc_range, class_names: list, seed: int) -> dict:
@@ -2271,14 +2439,18 @@ def main() -> None:
     del train_model
     torch.cuda.empty_cache()
 
-    # phase 7: f32 train step, kernels vs plain versions
+    # phase 7: f32 train step, kernels vs plain versions; one full-width
+    # SubM residual block on a train step's tables, bare against recomputed
     f32_train_kernels_vs_plain(cfg, batches[0], device, "f32_train_kernels_vs_plain")
+    recompute_block_check("flagship_stage0_residual", cfg["model"], batches[0], device)
+    torch.cuda.empty_cache()
 
     # phase 7b: the flagship's other backbone stage modes in training, bf16,
     # B = 4, through the Trainer; an f32 tile_stride1 step, kernels vs plain
     train_mode_launches = train_modes(batches, device)
 
-    # phase 7c: the merged heads in training, bf16, B = 4, through the Trainer
+    # phase 7c: the merged heads and the recompute without the
+    # save-conv-out policy in training, bf16, B = 4, through the Trainer
     for path, override in OPTION_TRAIN.items():
         with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
             train_model, train_mode_launches[path] = train_path(
@@ -2300,6 +2472,8 @@ def main() -> None:
     del train_model
     torch.cuda.empty_cache()
     f32_train_kernels_vs_plain(vcfg, vbatches[0], device, "voxel18_f32_train_kernels_vs_plain")
+    torch.cuda.empty_cache()
+    recompute_block_check("voxel18_stage0_residual", vcfg["model"], vbatches[0], device)
     torch.cuda.empty_cache()
 
     # phase 8a: voxel18 with the dense volume in training, bf16, B = 2 on a
@@ -2342,6 +2516,18 @@ def main() -> None:
         first_batch[path] = wbatches[0]
         del wbatches
         torch.cuda.empty_cache()
+    # Waymo voxel18 at B = 8: what the recompute's memory buys
+    wcfg = waymo["serving_waymo_voxel18"]["cfg"]
+    t0 = time.perf_counter()
+    wbatches = synthetic_batches(wcfg, MODE_TRAIN_STEPS, LARGE_BATCH, N_POINTS, seed=0)
+    emit({"phase": "train_data", "config": "train_waymo_voxel18_b8", "batches": len(wbatches),
+          "batch_size": LARGE_BATCH, "points_per_scene": N_POINTS, "max_points": int(wcfg["dataloader"]["max_points"]),
+          "host_seconds": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
+        train_model, train_mode_launches["train_waymo_voxel18_b8"] = train_path(
+            wcfg, wbatches, device, work_dir, "train_waymo_voxel18_b8", KERNELS[1:])
+    del train_model, wbatches
+    torch.cuda.empty_cache()
     waymo_gathers, waymo_segs = mvf_train_kernel_inputs(waymo["serving_mvf"]["cfg"], first_batch["train_mvf"],
                                                         device)
     pp18, = train_step_calls(waymo["serving_waymo_pp18"]["cfg"]["model"], first_batch["train_waymo_pp18"], device,
@@ -2354,7 +2540,7 @@ def main() -> None:
     # phase 8c: the CLIs, cli.train (2 steps, val_epoch, scorer) then
     # cli.test, on a nuScenes-format tree of 300k-point 10-sweep frames;
     # then cli.train under torchrun on 2 ranks
-    cli_train_launches, cli_test_launches, cli_ddp_launches = cli_paths(device)
+    cli_train_launches, cli_test_launches, ref_launches, cli_ddp_launches = cli_paths(device)
 
     # phase 8c': the CLIs on a Waymo tree (GT database by the port's tool,
     # NLZ-flagged points): cli.train on Waymo pp18 (2 steps, val_epoch,
@@ -2364,6 +2550,10 @@ def main() -> None:
     # phase 8d: data-parallel training, 2 ranks over gloo on the card (an
     # f32 step against 1 process, then timed bf16 steps), 1 rank over NCCL
     ddp_launches, nccl_launches = ddp_paths(cfg, batches, device)
+
+    # phase 8e: the learning check: the flagship overfits one planted scene
+    # and finds its objects (JAX's bar)
+    overfit_launches = overfit_flagship(device)
 
     # phase 9: each kernel vs its plain version at the main paths' shapes (after
     # the main paths, so that torch.profiler has not traced the process they run in)
@@ -2436,8 +2626,8 @@ def main() -> None:
                 return x if mdl.backbone is None else mdl.backbone(x, **tiles)
 
             emit({"phase": "frame_profile", "path": path,
-                  "predict": profile_device(lambda: mdl.predict(p, m, **tiles), 3),
-                  "reader_and_backbone": profile_device(reader_and_backbone, 3)})
+                  "predict": profile_device(lambda: mdl.predict(p, m, **tiles), FRAME_PROFILE_CALLS),
+                  "reader_and_backbone": profile_device(reader_and_backbone, FRAME_PROFILE_CALLS)})
     del profiled, vmodel, vpoints, vmask
 
     summary_keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -2458,6 +2648,7 @@ def main() -> None:
              **{path: w["launches"] for path, w in waymo.items()},
              "train": train_launches, "train_voxel18": vtrain_launches, **wtrain,
              "cli_train": cli_train_launches, "cli_test": cli_test_launches,
+             "reference_checkpoint": ref_launches, "overfit_flagship": overfit_launches,
              "cli_train_ddp": cli_ddp_launches, "cli_waymo": cli_waymo_launches,
              "cli_waymo_test": cli_waymo_test_launches, "ddp_train": ddp_launches, "ddp_nccl": nccl_launches,
              **{path: w["launches"] for path, w in modes.items()}, **train_mode_launches,

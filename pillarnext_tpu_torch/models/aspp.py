@@ -3,7 +3,8 @@
 Counterpart of ``ASPPNeck`` (pillarnext_tpu/models/aspp.py:23-62), eval:
 BasicBlock; branches [input, 1x1 conv, the shared 3x3 kernel
 ``neck.weight`` at dilations 1/6/12/18]; concat (6C) -> 1x1 ConvBlock.
-NHWC in and out.
+NHWC in and out.  In training the whole neck is recomputed in the
+backward, as JAX remats it (aspp.py:59-62): it keeps only its input.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pillarnext_tpu_torch.models.layers import BasicBlock, ConvBlock, conv2d
+from pillarnext_tpu_torch.models.layers import BasicBlock, ConvBlock, conv2d, recomputed
 
 DILATIONS = (1, 6, 12, 18)
 
@@ -45,6 +46,11 @@ class ASPPNeck(nn.Module):
         self.post_conv = ConvBlock(c * 6, c, kernel_size=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return recomputed(self, x, forward=ASPPNeck._forward)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.pre_conv(x.permute(0, 3, 1, 2))
         w = self.weight.to(x.dtype)
         branches = [x, conv2d(x, self.conv1x1)]

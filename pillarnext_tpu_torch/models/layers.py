@@ -14,6 +14,7 @@ reference checkpoint schema (``conv``/``norm``, ``block1``/``conv2``/
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +22,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pillarnext_tpu_torch import parallel
+from pillarnext_tpu_torch.ops.subm_conv import ConvOutputs, keeping, replaying
 
 BN_EPS_SPARSE = 1e-3  # PFN + backbone blocks
 BN_EPS_DENSE = 1e-5   # neck / head blocks
@@ -165,13 +167,31 @@ def statistics_frozen(module: nn.Module):
             m.update_statistics = True
 
 
-def recomputed(block: nn.Module, *args) -> torch.Tensor:
-    """``block(*args)`` that keeps only its inputs for the backward and
-    runs the block again there (``torch.utils.checkpoint``,
-    non-reentrant), with its BatchNorm statistics updated once, by the
-    first pass."""
-    return checkpoint(block, *args, use_reentrant=False,
-                      context_fn=lambda: (contextlib.nullcontext(), statistics_frozen(block)))
+def recomputed(block: nn.Module, *args, forward=None, save_conv_out: bool = False) -> torch.Tensor:
+    """``forward(block, *args)`` (``block(*args)`` without ``forward``)
+    that keeps only its inputs for the backward and runs the block again
+    there (``torch.utils.checkpoint``, non-reentrant, as JAX's
+    ``nn.remat``), with its BatchNorm statistics updated once, by the
+    first pass.  ``save_conv_out`` (JAX's ``save_only_these_names(
+    "sparse_conv_out")`` policy): the block also keeps each sparse conv's
+    output, and the replay takes it back instead of gathering again
+    (ops/subm_conv.py ``ConvOutputs``); the tap tables and masks are
+    inputs, built once outside the block."""
+    fn = block if forward is None else functools.partial(forward, block)
+
+    def contexts():
+        if not save_conv_out:
+            return contextlib.nullcontext(), statistics_frozen(block)
+        store = ConvOutputs()
+        return keeping(store), _replay(block, store)
+
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
+
+
+@contextlib.contextmanager
+def _replay(block: nn.Module, store: ConvOutputs):
+    with statistics_frozen(block), replaying(store):
+        yield
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:

@@ -42,6 +42,7 @@ the unmasked tail.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Sequence
 
 import torch
@@ -99,6 +100,17 @@ def _with_dump_row(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((1, x.shape[1]))])
 
 
+def run_block(forward, block: nn.Module, *args, remat=None):
+    """``forward(block, *args)``; with ``remat`` (a training forward)
+    recomputed in the backward as JAX's ``nn.remat`` of the block, keeping
+    each sparse conv's output when ``remat`` is True (JAX's
+    ``remat_save_conv_out`` policy, resnet.py:183-192) and only the
+    block's inputs when it is False."""
+    if remat is None:
+        return forward(block, *args)
+    return recomputed(block, *args, forward=forward, save_conv_out=remat)
+
+
 def sparse_conv_block(block: ConvBlock, x, valid, nbr):
     """SubM conv + BN + ReLU over the compact table (resnet.py:111-131)."""
     y = subm_conv(_with_dump_row(x), nbr, _subm_kernel(block.conv))
@@ -114,20 +126,20 @@ def sparse_residual_block(block: ResidualBlock, x, valid, nbr):
     return torch.where(valid[:, None], torch.relu(y + x), 0.0)
 
 
-def sparse_stage(stage: nn.ModuleList, x, valid, nbr):
+def sparse_stage(stage: nn.ModuleList, x, valid, nbr, remat=None):
     """A stride-1 stage (a ConvBlock, then residual blocks) over the
-    compact table (resnet.py:274-302)."""
-    x = sparse_conv_block(stage[0], x, valid, nbr)
+    compact table, each block run by ``run_block`` (resnet.py:274-302)."""
+    x = run_block(sparse_conv_block, stage[0], x, valid, nbr, remat=remat)
     for block in stage[1:]:
-        x = sparse_residual_block(block, x, valid, nbr)
+        x = run_block(sparse_residual_block, block, x, valid, nbr, remat=remat)
     return x
 
 
-def sparse_strided_block(conv: nn.Module, norm: BatchNorm, x, out_valid, nbr_fwd, nbr_rev):
+def sparse_strided_block(block: ConvBlock, x, out_valid, nbr_fwd, nbr_rev):
     """Strided sparse conv + BN + ReLU into the dilated output table
     (resnet.py:160-180)."""
-    y = sparse_strided_conv(_with_dump_row(x), nbr_fwd, nbr_rev, _subm_kernel(conv))
-    y = norm(y, channel_dim=-1, valid=out_valid)
+    y = sparse_strided_conv(_with_dump_row(x), nbr_fwd, nbr_rev, _subm_kernel(block.conv))
+    y = block.norm(y, channel_dim=-1, valid=out_valid)
     return torch.where(out_valid[:, None], torch.relu(y), 0.0)
 
 
@@ -154,11 +166,13 @@ def tile_residual_block(block: ResidualBlock, stack, tm, plain: bool):
     return torch.where(tm.out_mask[..., None], torch.relu(y + stack), 0.0)
 
 
-def tile_stage(stage: nn.ModuleList, stack, tm, plain: bool):
-    """A stride-1 stage over the active-tile stack (resnet.py:372-395)."""
-    stack = tile_conv_block(stage[0], stack, tm, plain)
+def tile_stage(stage: nn.ModuleList, stack, tm, plain: bool, remat=None):
+    """A stride-1 stage over the active-tile stack, each block run by
+    ``run_block`` (resnet.py:372-395: JAX remats each tile block with no
+    policy, so a training forward passes ``remat=False``)."""
+    stack = run_block(tile_conv_block, stage[0], stack, tm, plain, remat=remat)
     for block in stage[1:]:
-        stack = tile_residual_block(block, stack, tm, plain)
+        stack = run_block(tile_residual_block, block, stack, tm, plain, remat=remat)
     return stack
 
 
@@ -167,9 +181,15 @@ class SparseResNet(nn.Module):
     blocks, then a 1x1 ConvBlock to ``out_channels``.  Input: a SparseBEV
     or a dense (B, H, W, C) image; output: (B, H', W', out_channels) NHWC.
     Takes every option of JAX's ``SparseResNet`` but ``axis_name`` (the
-    port syncs BatchNorm by ``BatchNorm.sync``); ``remat_save_conv_out``
-    is accepted and changes nothing (the port recomputes no sparse
-    block)."""
+    port syncs BatchNorm by ``BatchNorm.sync``).
+
+    In training every block that runs over compact tables is recomputed in
+    the backward, as JAX remats it: each SubM block, and the strided block
+    of a stage in the ``all`` mode, keeping each sparse conv's output with
+    ``remat_save_conv_out`` (the default, JAX's policy) and only the
+    block's input without it; each tile block with no policy.  The strided
+    block of ``leading+down`` and the 1x1 mapping run bare, as in JAX;
+    the masked-dense tail recomputes each block under ``remat_train``."""
 
     def __init__(
         self,
@@ -206,6 +226,7 @@ class SparseResNet(nn.Module):
         self.sparse_eval = bool(sparse_eval)
         self.masked_eval = bool(masked_eval)
         self.remat_train = bool(remat_train)
+        self.remat_save_conv_out = bool(remat_save_conv_out)
         self.sparse_stages_train = sparse_stages_train
         self.sparse_stages_eval = sparse_stages_eval
         self.packed_downsample = bool(packed_downsample)
@@ -305,7 +326,7 @@ class SparseResNet(nn.Module):
                 )
                 feats = sb.table[:-1]
                 for i in range(self.n_sparse):
-                    feats = sparse_stage(self.blocks[i], feats, sb.valid, nbr)
+                    feats = sparse_stage(self.blocks[i], feats, sb.valid, nbr, self._sparse_remat)
                 start = self.n_sparse
                 h, w = sb.spatial
                 packed = (not train and self.packed_downsample and start < len(self.layer_nums)
@@ -346,6 +367,16 @@ class SparseResNet(nn.Module):
             x = x * m
         return x.permute(0, 2, 3, 1)
 
+    @property
+    def _sparse_remat(self):
+        """``run_block``'s ``remat`` for a SubM or strided block."""
+        return self.remat_save_conv_out if self.training else None
+
+    @property
+    def _tile_remat(self):
+        """``run_block``'s ``remat`` for a tile block: no policy."""
+        return False if self.training else None
+
     def _tile_map_for(self, sod, slot_id, batch, spatial, site_cap, tiles: int, frac: float,
                       tag: str, telemetry: dict):
         """A TileMap of ``tile_slots`` slots at one resolution and its
@@ -369,15 +400,16 @@ class SparseResNet(nn.Module):
                                 tiles, 1.0, "prefix", telemetry)
         stack = pack_stack(sb.table, tm, plain)
         for i in range(self.n_sparse):
-            stack = tile_stage(self.blocks[i], stack, tm, plain)
+            stack = tile_stage(self.blocks[i], stack, tm, plain, self._tile_remat)
         return stack_to_dense(stack, tm, plain)
 
-    def _down(self, i: int, cap0: int, table, valid, sod, slot_id, batch, spatial, telemetry: dict):
+    def _down(self, i: int, cap0: int, table, valid, sod, slot_id, batch, spatial, telemetry: dict,
+              remat=None):
         """Stage ``i``'s set-dilating strided conv block into a table of its
         own, sized from the reader's capacity ``cap0`` (``stage{i}_active``
         / ``_overflow``); in training with the reverse tap table of its
-        backward.  Returns (table, out_valid, out_sod, out_slot_id,
-        out_spatial, cap_out)."""
+        backward, run by ``run_block`` with ``remat``.  Returns (table,
+        out_valid, out_sod, out_slot_id, out_spatial, cap_out)."""
         k, s = self.kernel_size[i], self.strides[i]
         cap_out = self._stage_capacity(cap0, batch, spatial, i)
         out_slot_id, out_sod, out_valid, out_sp, n_out = downsample_active_set(
@@ -390,7 +422,7 @@ class SparseResNet(nn.Module):
             nbr_fwd, nbr_rev = build_down_neighbor_tables(
                 sod, out_slot_id, slot_id, batch, spatial, (k, k), (s, s)
             )
-            table = sparse_strided_block(block.conv, block.norm, table, out_valid, nbr_fwd, nbr_rev)
+            table = run_block(sparse_strided_block, block, table, out_valid, nbr_fwd, nbr_rev, remat=remat)
         else:
             nbr_fwd = down_neighbor_table(sod, out_slot_id, valid.shape[0], batch, spatial, (k, k), (s, s))
             table = sparse_down_block_eval(block.conv, block.norm, table, out_valid, nbr_fwd)
@@ -406,18 +438,21 @@ class SparseResNet(nn.Module):
             if s == 1 and self.tile_stride1 and len(spatial) == 2 and k == 3:
                 tm = self._tile_map_for(sod, slot_id, batch, spatial, valid.shape[0], tiles,
                                         float(self.stage_capacity_frac[i]), f"stage{i}", telemetry)
-                table = unpack_stack(tile_stage(stage, pack_stack(table, tm, plain), tm, plain), tm, plain)
+                stack = tile_stage(stage, pack_stack(table, tm, plain), tm, plain, self._tile_remat)
+                table = unpack_stack(stack, tm, plain)
                 continue
             if s > 1:
                 table, valid, sod, slot_id, spatial, _ = self._down(
-                    i, sb.capacity, table, valid, sod, slot_id, batch, spatial, telemetry)
+                    i, sb.capacity, table, valid, sod, slot_id, batch, spatial, telemetry,
+                    self._sparse_remat)
                 stage = stage[1:]
             nbr = build_neighbor_table(sod, slot_id, spatial, subm_offsets_2d(k), valid.shape[0])
             if s == 1:
-                table = sparse_stage(stage, table, valid, nbr)
+                table = sparse_stage(stage, table, valid, nbr, self._sparse_remat)
             else:
                 for block in stage:
-                    table = sparse_residual_block(block, table, valid, nbr)
+                    table = run_block(sparse_residual_block, block, table, valid, nbr,
+                                      remat=self._sparse_remat)
         # 1x1 mapping = SubM conv whose only tap is the site itself
         nbr1 = build_neighbor_table(sod, slot_id, spatial, np.zeros((1, 2), np.int32), valid.shape[0])
         y = subm_conv(_with_dump_row(table), nbr1, _subm_kernel(self.mapping[0]))
@@ -439,7 +474,7 @@ class SparseResNet(nn.Module):
             nbr = build_neighbor_table(sb.slot_of_dense, sb.slot_id, spatial,
                                        subm_offsets_2d(self.kernel_size[0]), sb.capacity)
             for j in range(i):
-                table = sparse_stage(self.blocks[j], table, sb.valid, nbr)
+                table = sparse_stage(self.blocks[j], table, sb.valid, nbr, self._sparse_remat)
         table, out_valid, out_sod, out_slot_id, out_sp, cap_out = self._down(
             i, sb.capacity, table, sb.valid, sb.slot_of_dense, sb.slot_id, batch, spatial, telemetry)
         x = SparseBEV(_with_dump_row(table), out_valid, out_sod, out_slot_id, batch, out_sp)
@@ -478,10 +513,12 @@ class SparseResNet3D(nn.Module):
     strided convs and the extra z-conv get the reverse tap table their
     backward gathers through (``build_down_neighbor_tables``), the SubM
     convs their mirrored tap table, and the densify's backward is kernel 2
-    too.  No block is recomputed in the backward (JAX remats every block):
-    the autograd Functions keep only their input table, tap tables and
-    kernel, so each (rows, K * C) gather buffer lives only inside its
-    conv's forward or backward."""
+    too.  Each SubM block (a stride-1 stage's conv block and every
+    residual block) is recomputed in the backward as JAX remats it
+    (resnet.py:1031-1036), keeping each sparse conv's output with
+    ``remat_save_conv_out`` (the default) and only its input without it;
+    the strided blocks, the extra z-conv and the mapping run bare, as in
+    JAX."""
 
     def __init__(
         self,
@@ -492,6 +529,7 @@ class SparseResNet3D(nn.Module):
         kernel_size: Sequence[int] = (3, 3, 3, 3),
         out_channels: int = 128,
         stage_capacity_frac: Sequence[float] = (1.0, 1.5, 0.9, 0.4, 0.25),
+        remat_save_conv_out: bool = True,
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
@@ -499,6 +537,7 @@ class SparseResNet3D(nn.Module):
         self.strides = tuple(int(s) for s in ds_layer_strides)
         self.kernel_size = tuple(int(k) for k in kernel_size)
         self.stage_capacity_frac = tuple(float(f) for f in stage_capacity_frac)
+        self.remat_save_conv_out = bool(remat_save_conv_out)
         blocks = []
         in_ch = num_input_features
         for i, n_blocks in enumerate(self.layer_nums):
@@ -561,7 +600,8 @@ class SparseResNet3D(nn.Module):
                 nbr_fwd, nbr_rev = build_down_neighbor_tables(
                     sod, out_slot_id, slot_id, batch, spatial, kernel_shape, stride, padding
                 )
-                table = sparse_strided_block(conv, norm, table, out_valid, nbr_fwd, nbr_rev)
+                table = sparse_strided_block(SimpleNamespace(conv=conv, norm=norm), table, out_valid,
+                                             nbr_fwd, nbr_rev)
             else:
                 nbr_fwd = down_neighbor_table(
                     sod, out_slot_id, valid.shape[0], batch, spatial, kernel_shape, stride, padding
@@ -570,15 +610,16 @@ class SparseResNet3D(nn.Module):
             valid, sod, slot_id, spatial = out_valid, out_sod, out_slot_id, out_sp
             return table
 
+        remat = self.remat_save_conv_out if self.training else None
         for i, stage in enumerate(self.blocks):
             k, s = self.kernel_size[i], self.strides[i]
             if s > 1:
                 table = down(table, (k,) * 3, (s,) * 3, None, f"stage{i}", stage[0].conv, stage[0].norm)
             nbr = build_neighbor_table(sod, slot_id, spatial, subm_offsets_3d(k), valid.shape[0])
             if s == 1:
-                table = sparse_conv_block(stage[0], table, valid, nbr)
+                table = run_block(sparse_conv_block, stage[0], table, valid, nbr, remat=remat)
             for block in stage[1:]:
-                table = sparse_residual_block(block, table, valid, nbr)
+                table = run_block(sparse_residual_block, block, table, valid, nbr, remat=remat)
         table = down(table, *EXTRA_Z_DOWN, "extra", *self.extra_conv)
 
         # SubM 1x1x1 mapping: the site's own row only

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pillarnext_tpu_torch.ops.subm_conv import box_taps, gather_matmul, row_major_strides
+from pillarnext_tpu_torch.ops.subm_conv import box_taps, conv_forward, gather_matmul, row_major_strides
 
 
 def out_spatial_for(spatial, kernel_shape, stride, padding=None) -> tuple:
@@ -155,7 +155,7 @@ class _SparseStridedConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, nbr_fwd, nbr_rev, kernel):
         ctx.save_for_backward(table, nbr_rev, kernel)
-        return gather_matmul(table, nbr_fwd, kernel)
+        return conv_forward(lambda: gather_matmul(table, nbr_fwd, kernel))
 
     @staticmethod
     def backward(ctx, g):

@@ -12,9 +12,19 @@ the active set is closed under mirroring (``nbr[j, k] = i`` iff
 g[nbr[:, m]]`` gives both ``dx[i] = sum_m H[i, m] @ W[K-1-m]^T`` and
 ``dW[k] = x^T @ H[:, K-1-k]`` (f32 accumulation), instead of the
 scatter-add that autograd of the gather would emit.
+
+Both backwards need only the conv's input table, its tap tables and its
+kernel.  So a block recomputed in the backward under JAX's
+``save_only_these_names("sparse_conv_out")`` policy (models/layers.py
+``recomputed(..., save_conv_out=True)``) keeps each conv's output from
+its first pass (``keeping``) and its replay takes them back in call order
+(``replaying``) instead of gathering again: the same bits, one gather
+sweep per conv in the whole forward and backward.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -99,11 +109,69 @@ def gather_matmul(table: torch.Tensor, nbr: torch.Tensor, kernel: torch.Tensor) 
     return x @ kernel.reshape(k * cin, -1)
 
 
+class ConvOutputs:
+    """The sparse convs' outputs of one recomputed block, in call order:
+    appended by its first pass, handed back once each by its replay."""
+
+    def __init__(self):
+        self.outputs: list[torch.Tensor] = []
+        self.replay = False
+        self.taken = 0
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.outputs)
+
+
+# the store of the block running now: torch.utils.checkpoint re-enters a
+# block only through the contexts its ``context_fn`` gives (models/layers.py
+# ``recomputed``), so the conv Functions find the store here
+_active: ConvOutputs | None = None
+
+
+@contextlib.contextmanager
+def _using(store: ConvOutputs, replay: bool):
+    global _active
+    outer, store.replay, store.taken = _active, replay, 0
+    _active = store
+    try:
+        yield
+    finally:
+        _active = outer
+
+
+def keeping(store: ConvOutputs):
+    """Inside the block, every sparse conv appends its output to ``store``."""
+    return _using(store, False)
+
+
+def replaying(store: ConvOutputs):
+    """Inside the block, every sparse conv returns the next output of
+    ``store`` and computes nothing."""
+    return _using(store, True)
+
+
+def conv_forward(compute) -> torch.Tensor:
+    """``compute()``, the forward of a sparse conv, kept or replayed as the
+    active ``ConvOutputs`` says."""
+    store = _active
+    if store is None:
+        return compute()
+    if not store.replay:
+        out = compute()
+        store.outputs.append(out.detach())
+        return out
+    if store.taken >= len(store.outputs):
+        raise RuntimeError("a replayed block ran more sparse convs than its first pass")
+    store.taken += 1
+    return store.outputs[store.taken - 1].detach()
+
+
 class _SubMConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, nbr, kernel):
         ctx.save_for_backward(table, nbr, kernel)
-        return gather_matmul(table, nbr, kernel)
+        return conv_forward(lambda: gather_matmul(table, nbr, kernel))
 
     @staticmethod
     def backward(ctx, g):

@@ -1,7 +1,7 @@
 """Synthetic LiDAR-like point clouds and labelled scenes (host, numpy).
 
-The port's own copy of pillarnext_tpu/utils/synth.py:20-143, with the same
-seeds giving the same arrays.  Real spinning-LiDAR returns are
+The port's own copy of pillarnext_tpu/utils/synth.py:20-181, with the same
+seeds giving the same arrays and files.  Real spinning-LiDAR returns are
 beam-structured: points concentrate on surfaces, so a multi-sweep nuScenes
 frame of ~200-300k points occupies only ~40-60k pillars of the 1344^2 x
 0.075 m grid.  The generator clusters points on ~n/10 surface patches with
@@ -10,6 +10,9 @@ following the range falloff of returns.
 """
 
 from __future__ import annotations
+
+import pickle
+from pathlib import Path
 
 import numpy as np
 
@@ -135,3 +138,40 @@ def synth_detection_scene(
     pts[:, :3] = xyz
     pts[:, 3] = rng.uniform(0, 255, len(xyz))
     return pts, boxes, np.array(labels)
+
+
+def write_synthetic_nusc(
+    root,
+    n_scenes: int,
+    n_points: int = 120_000,
+    pc_range=(-50.4, -50.4, -5.0, 50.4, 50.4, 3.0),
+    seed: int = 0,
+    n_objects: int = 24,
+) -> Path:
+    """Write a nuScenes-format tree of ``n_scenes`` labelled single-sweep
+    scans (``samples/scene_{i}.bin``) and their infos
+    (``infos_synth.pkl``), which the nuScenes dataset reads for training
+    and the self-contained ``detection_cvpr_2019`` scorer for evaluation.
+    Identity ego and reference poses make the global frame the lidar
+    frame.  Returns the infos path."""
+    root = Path(root)
+    (root / "samples").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    infos = []
+    for i in range(n_scenes):
+        pts, boxes, names = synth_detection_scene(rng, n_points, pc_range, n_objects)
+        path = f"samples/scene_{i}.bin"
+        pts.tofile(root / path)
+        infos.append({
+            "lidar_path": path,
+            "token": f"synth_{i}",
+            "sweeps": [],
+            "timestamp": float(i),
+            "gt_boxes": boxes,
+            "gt_names": names,
+            "ref_from_car": np.eye(4, dtype=np.float64),
+            "car_from_global": np.eye(4, dtype=np.float64),
+        })
+    with open(root / "infos_synth.pkl", "wb") as f:
+        pickle.dump(infos, f)
+    return root / "infos_synth.pkl"

@@ -1,5 +1,15 @@
-"""JAX ``{params, batch_stats}`` trees -> the port's state_dict (numpy only).
+"""Weights in and out of the port's state_dict.
 
+In: a checkpoint written by the reference (qcraftai/pillarnext, such as
+the released PillarNeXt-B weights) through ``load_torch_state_dict`` and
+``state_dict_from_reference``, the port's counterparts of the JAX
+importer's ``load_torch_state_dict`` and ``import_pillarnext``
+(pillarnext_tpu/utils/torch_import.py:30-47, :199-376) for the pillar
+family, the only one JAX imports.  The port's modules use the reference
+schema, so a reference tensor lands under its own name; only spconv's
+(O, kH, kW, I) sparse kernels change layout.
+
+Out: JAX ``{params, batch_stats}`` trees -> the port's state_dict (numpy).
 The port's own copy of ``export_pillarnext``, ``export_voxelnext`` and
 ``export_mvfnext`` and their helpers
 (pillarnext_tpu/utils/torch_import.py:378-649), for the pillarnet18_aspp,
@@ -25,6 +35,67 @@ shapes as ``batch_stats``).
 from __future__ import annotations
 
 import numpy as np
+import torch
+from torch import nn
+
+
+def load_torch_state_dict(path) -> dict[str, np.ndarray]:
+    """A reference checkpoint (.pth: a bare state_dict, or one under
+    ``state_dict`` or ``model``, keys possibly prefixed ``module.`` by
+    DataParallel) as numpy arrays by name (the reference's
+    checkpoint.py:28-43)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        sd = ckpt["state_dict"]
+    elif isinstance(ckpt, dict) and "model" in ckpt:
+        sd = ckpt["model"]
+    else:
+        sd = ckpt
+    return {k.removeprefix("module."): v.detach().cpu().numpy() for k, v in sd.items()}
+
+
+def conv_kernel(w: np.ndarray, in_channels: int) -> np.ndarray:
+    """A conv weight as torch (O, I, *k) or spconv (O, *k, I) -> (O, I, *k),
+    by the JAX importer's rule (torch_import.py:57-66): torch's layout when
+    axis 1 holds ``in_channels`` and the last axis does not, spconv's when
+    the last axis does, torch's when neither does."""
+    if w.shape[1] == in_channels and w.shape[-1] != in_channels:
+        return w
+    if w.shape[-1] == in_channels:
+        return np.ascontiguousarray(np.moveaxis(w, -1, 1))
+    return w
+
+
+def state_dict_from_reference(sd: dict, model: nn.Module) -> dict[str, torch.Tensor]:
+    """The port's state_dict for a pillar-family ``model`` from a reference
+    state_dict ``sd`` (``load_torch_state_dict``): ``num_batches_tracked``
+    dropped, each conv weight in torch's layout (``conv_kernel``), every
+    tensor float32.  The port keeps the per-task, per-branch schema under
+    every head option (``merge_branches`` and ``merge_tasks`` concatenate
+    at apply time), so the merged heads read these tensors as they are.
+    Raises on a missing key, a key left over, or a shape the model does
+    not take, as ``validate_against_flax`` fails on the JAX side."""
+    from pillarnext_tpu_torch.models.pillar_encoder import PillarFeatureNet
+
+    if not isinstance(model.reader, PillarFeatureNet):
+        raise ValueError(f"reference checkpoints import into the pillar family, not a {type(model.reader).__name__}")
+    sd = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+    expected = model.state_dict()
+    missing = sorted(set(expected) - set(sd))
+    stray = sorted(set(sd) - set(expected))
+    if missing or stray:
+        raise KeyError(f"reference checkpoint: missing keys {missing[:10]} ({len(missing)}), "
+                       f"keys left over {stray[:10]} ({len(stray)})")
+    convs = {f"{name}.weight" for name, m in model.named_modules() if isinstance(m, (nn.Conv2d, nn.Conv3d))}
+    out = {}
+    for k, ref in expected.items():
+        w = np.asarray(sd[k])
+        if k in convs and w.ndim == ref.dim():
+            w = conv_kernel(w, ref.shape[1])
+        if tuple(w.shape) != tuple(ref.shape):
+            raise ValueError(f"reference checkpoint: {k} has shape {tuple(w.shape)}, the model takes {tuple(ref.shape)}")
+        out[k] = torch.from_numpy(np.array(w, dtype=np.float32)).to(ref.dtype)
+    return out
 
 
 def _inv_conv_kernel(k) -> np.ndarray:

@@ -13,6 +13,7 @@ from types import SimpleNamespace
 
 import pytest
 import torch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
@@ -164,6 +165,7 @@ def test_option_lists_build_their_options():
         "serving_approx_topk": lambda m: m.post_processing["approx_topk"],
         "train_merge_tasks": lambda m: m.head.merge_tasks,
         "train_merge_branches": lambda m: all(t.merge_branches for t in m.head.tasks),
+        "train_no_save_conv_out": lambda m: not m.backbone.remat_save_conv_out,
     }
     for path, override in {**chip_smoke.OPTION_PATHS, **chip_smoke.OPTION_TRAIN}.items():
         width = ["model.reader.num_filters=[16,16]"] if path != "serving_pfn3" else []

@@ -23,6 +23,7 @@ from pillarnext_tpu_torch.models.resnet import SparseResNet
 from pillarnext_tpu_torch.ops import subm_conv
 from pillarnext_tpu_torch.ops.compact import compactify, invert_slot_map
 from pillarnext_tpu_torch.ops.sparse_bev import SparseBEV
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 H = W = 32
 B = 2

@@ -8,6 +8,15 @@
 - the overflow repair: an undersized ``pillar_capacity`` repairs to the
   detections of a model built with an ample one; ``eval_overflow=raise``
   raises;
+- a checkpoint in the reference's layout (``state_dict`` key, ``module.``
+  prefixes, spconv's (O, kH, kW, I) sparse kernels,
+  ``num_batches_tracked``), written from JAX's ``export_pillarnext`` of
+  the same weights: JAX's ``load_torch_state_dict`` + ``import_pillarnext``
+  give back JAX's trees, the port's ``cli.import_checkpoint`` gives a
+  checkpoint whose ``val_epoch`` detections meet the pillar bars against
+  JAX's, with the default head and with ``merge_branches`` /
+  ``merge_tasks`` (whose trees JAX's importer builds from the same file);
+  a missing, stray or misshapen tensor raises;
 - ``cli.train.main`` then ``cli.test.main`` in-process (``--device cpu``)
   on the mini nuScenes tree at tests/test_cli_e2e.py's overrides (64 x 64
   grid): the checkpoint and the scorer's files, test's detections equal to
@@ -30,8 +39,10 @@ from pillarnext_tpu.parallel import mesh as mesh_lib
 from pillarnext_tpu.train import train_state as jax_ts
 from pillarnext_tpu.train.trainer import Trainer as JaxTrainer
 from pillarnext_tpu.utils import builders as jax_builders
+from pillarnext_tpu.utils import torch_import as jax_import
 from pillarnext_tpu.utils.torch_import import import_pillarnext
 from pillarnext_tpu.utils.synth import lidar_like_points
+from pillarnext_tpu_torch.cli import import_checkpoint as cli_import
 from pillarnext_tpu_torch.cli import test as cli_test
 from pillarnext_tpu_torch.cli import train as cli_train
 from pillarnext_tpu_torch.data.synthetic import synthetic_batches
@@ -39,6 +50,7 @@ from pillarnext_tpu_torch.train import checkpoint as ckpt_lib
 from pillarnext_tpu_torch.train.trainer import Trainer
 from pillarnext_tpu_torch.utils.builders import build_eval_model_scaled, build_model, build_optimizer
 from pillarnext_tpu_torch.utils.config import load_experiment
+from pillarnext_tpu_torch.utils.torch_import import load_torch_state_dict, state_dict_from_reference
 from pillarnext_tpu_torch.utils.weights import load_jax_variables
 from tests.test_cli_e2e import _overrides as cli_overrides
 from tests.test_data_pipeline import make_mini_nuscenes
@@ -267,3 +279,87 @@ def test_cli_refuses_more_than_one_process(monkeypatch, tmp_path):
     monkeypatch.setenv("MASTER_PORT", "1")
     with pytest.raises(RuntimeError, match="nccl backend needs a CUDA device"):
         cli_train.main([*argv, "--dist-backend", "nccl"])
+
+
+def reference_checkpoint(cfg, variables, path):
+    """JAX's ``export_pillarnext`` of ``variables`` written as the reference
+    writes a checkpoint: under ``state_dict``, every key prefixed
+    ``module.``, the sparse backbone's kernels in spconv's (O, kH, kW, I),
+    a ``num_batches_tracked`` beside every BatchNorm."""
+    head = cfg["model"]["head"]
+    sd = jax_import.export_pillarnext(
+        variables["params"], variables["batch_stats"], num_filters=cfg["model"]["reader"]["num_filters"],
+        layer_nums=cfg["model"]["backbone"]["layer_nums"], tasks=head["tasks"],
+        common_heads=head["common_heads"])
+    out = {}
+    for k, v in sd.items():
+        t = torch.from_numpy(np.array(v))
+        if k.startswith("backbone.blocks.") and t.dim() == 4:
+            t = t.permute(0, 2, 3, 1).contiguous()
+        out["module." + k] = t
+        if k.endswith(".running_var"):
+            out["module." + k.replace(".running_var", ".num_batches_tracked")] = torch.tensor(7)
+    torch.save({"state_dict": out, "epoch": 3}, path)
+    return path
+
+
+@pytest.mark.parametrize("head_option", [None, "merge_branches", "merge_tasks"])
+def test_reference_checkpoint_imports_as_jax_does(jax_val, tmp_path, head_option):
+    cfg, variables, ref = jax_val
+    path = reference_checkpoint(cfg, variables, tmp_path / "reference.pth")
+    model_cfg, head = cfg["model"], cfg["model"]["head"]
+    kw = dict(num_filters=model_cfg["reader"]["num_filters"], layer_nums=model_cfg["backbone"]["layer_nums"],
+              ds_num_filters=model_cfg["backbone"]["ds_num_filters"],
+              num_input_features=model_cfg["backbone"]["num_input_features"],
+              out_channels=model_cfg["backbone"]["out_channels"], tasks=head["tasks"],
+              common_heads=head["common_heads"])
+    if head_option is None:
+        # JAX's import gives back the trees its val_epoch ran
+        params, stats = import_pillarnext(jax_import.load_torch_state_dict(path), **kw)
+        for got, want in ((params, variables["params"]), (stats, variables["batch_stats"])):
+            assert jax.tree.structure(got) == jax.tree.structure(want)
+            for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        overrides = []
+    else:
+        # JAX's importer builds the merged head's trees from the same file
+        import_pillarnext(jax_import.load_torch_state_dict(path), **kw, **{head_option: True})
+        overrides = [f"+model.head.{head_option}=true"]
+    argv = ["--config", str(FLAGSHIP), "--device", "cpu", *OVERRIDES, *overrides]
+    ckpt = cli_import.main([*argv[:4], "--torch-checkpoint", str(path), "--out", str(tmp_path / "imported"),
+                            *argv[4:]])
+    assert ckpt == tmp_path / "imported" / "epoch_0.pt"
+    run_cfg = load_experiment(FLAGSHIP, OVERRIDES + overrides)
+    loader = StubLoader(val_batch())
+    trainer = port_trainer(run_cfg, build_model(run_cfg["model"], device="cpu"), loader, tmp_path / "val")
+    trainer.resume(ckpt)  # what cli.test --checkpoint reads
+    trainer.val_epoch()
+    got = loader.results
+    assert got.keys() == ref.keys()
+    for token in ref:
+        o, r = got[token], ref[token]
+        assert len(o["scores"]) == len(r["scores"]), token
+        o_ord = np.lexsort((-o["scores"], o["label_preds"]))
+        r_ord = np.lexsort((-r["scores"], r["label_preds"]))
+        np.testing.assert_array_equal(o["label_preds"][o_ord], r["label_preds"][r_ord])
+        np.testing.assert_allclose(o["scores"][o_ord], r["scores"][r_ord], atol=1e-3, rtol=0)
+        np.testing.assert_allclose(o["box3d_lidar"][o_ord], r["box3d_lidar"][r_ord], atol=1e-2, rtol=0)
+    # what cli.train --load-from reads
+    trainer.load_weights(ckpt)
+
+
+def test_reference_checkpoint_rejects_missing_stray_and_misshapen_tensors(jax_val, tmp_path):
+    cfg, variables, _ = jax_val
+    sd = load_torch_state_dict(reference_checkpoint(cfg, variables, tmp_path / "reference.pth"))
+    assert not any(k.startswith("module.") for k in sd)
+    model = build_model(cfg["model"], device="cpu")
+    model.load_state_dict(state_dict_from_reference(sd, model), strict=True)
+    missing = dict(sd)
+    del missing["neck.conv1x1.weight"]
+    with pytest.raises(KeyError, match="neck.conv1x1.weight"):
+        state_dict_from_reference(missing, model)
+    with pytest.raises(KeyError, match="head.extra.weight"):
+        state_dict_from_reference(dict(sd, **{"head.extra.weight": np.zeros(3, np.float32)}), model)
+    bad = dict(sd, **{"neck.weight": sd["neck.weight"][:, :-1]})
+    with pytest.raises(ValueError, match="neck.weight"):
+        state_dict_from_reference(bad, model)

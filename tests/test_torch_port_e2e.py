@@ -22,6 +22,7 @@ from pillarnext_tpu.utils.synth import lidar_like_points
 from pillarnext_tpu_torch.serving import AdaptivePredictor
 from pillarnext_tpu_torch.utils.builders import build_model
 from pillarnext_tpu_torch.utils.weights import load_jax_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FLAGSHIP = (
     Path(__file__).resolve().parent.parent

@@ -17,6 +17,7 @@ from pillarnext_tpu.ops.pallas_gather import monotone_row_gather as jax_gather
 from pillarnext_tpu_torch.ops.densify import densify
 from pillarnext_tpu_torch.ops.gather import monotone_row_gather
 from pillarnext_tpu_torch.ops.scatter import gather_segments
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _monotone_stream(rng, m, r, sentinel_frac):

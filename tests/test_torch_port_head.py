@@ -23,6 +23,7 @@ from pillarnext_tpu.utils import torch_import as ti
 from pillarnext_tpu_torch.core import nms, torch_box_ops
 from pillarnext_tpu_torch.models.centerhead import CenterHead
 from pillarnext_tpu_torch.ops.topk import exact_top_k
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_exact_top_k_tie_order():

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from tests import torch_dist_worker as dist_worker
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 VARIANTS = {"per_site": {}, "tile_stride1": {"tile_stride1": True}}
 

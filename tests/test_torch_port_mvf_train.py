@@ -67,6 +67,7 @@ from tests.test_torch_port_voxel_train import (
     one_step,
     relu_flips,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 DATA_SEED = 3
 WEIGHT_SEED = 0

@@ -572,3 +572,104 @@ def test_port_options_import_no_jax(option, options_run):
         return
     shape, finite = options_run["results"][option]
     assert shape[0] == 1 and shape[2] == 9 and finite
+
+
+LEARNING_SCRIPT = r"""
+import contextlib, io, json, sys, tempfile
+from pathlib import Path
+import torch
+from pillarnext_tpu_torch.cli import import_checkpoint
+from pillarnext_tpu_torch.data.synthetic import synthetic_batches
+from pillarnext_tpu_torch.tools import metric_delta, overfit_sanity
+from pillarnext_tpu_torch.train.train_state import train_step
+from pillarnext_tpu_torch.train.trainer import batch_to_device
+from pillarnext_tpu_torch.utils import profiling
+from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
+from pillarnext_tpu_torch.utils.config import load_experiment
+from pillarnext_tpu_torch.utils.synth import write_synthetic_nusc
+
+flagship = sys.argv[1]
+pc = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]
+narrow = [f"model.reader.pc_range={pc}", "model.reader.voxel_size=[0.25,0.25,8.0]",
+          "model.reader.num_filters=[16,16]", "model.reader.pillar_capacity=4096",
+          "+model.reader.train_pillar_capacity=4096",
+          "model.backbone.ds_num_filters=[16,32,32,32]", "model.backbone.num_input_features=16",
+          "+model.backbone.out_channels=32", "model.neck.in_channels=32",
+          "model.head.in_channels=32", "+model.head.share_conv_channel=32"]
+results = {}
+# training recomputes each sparse block and the neck, with and without the policy
+losses = []
+for save in ("true", "false"):
+    cfg = load_experiment(flagship, narrow + [f"+model.backbone.remat_save_conv_out={save}"])
+    model = build_model(cfg["model"], device="cpu", generator=torch.Generator().manual_seed(0), train=True)
+    opt, _ = build_optimizer(cfg, 1, list(model.parameters()))
+    batch = synthetic_batches(cfg, 1, 1, 2000, seed=0, n_objects=3, max_points=3000)[0]
+    timer = profiling.StepTimer(device="cpu")
+    timer.tick()
+    with profiling.annotate("step"):
+        scalars, _ = train_step(model, opt, batch_to_device(batch, "cpu"))
+    losses.append(float(scalars["loss"]))
+    results["profiling"] = timer.tick() > 0
+results["recompute"] = losses
+tmp = Path(tempfile.mkdtemp())
+sd = {"module." + k: v for k, v in build_model(cfg["model"], device="cpu",
+      generator=torch.Generator().manual_seed(1)).state_dict().items()}
+torch.save({"state_dict": sd}, tmp / "reference.pth")
+with contextlib.redirect_stdout(io.StringIO()):
+    path = import_checkpoint.main(["--config", flagship, "--torch-checkpoint", str(tmp / "reference.pth"),
+                                   "--out", str(tmp / "imported"), "--device", "cpu", *narrow])
+results["import_checkpoint"] = sorted(torch.load(path, weights_only=True))
+results["write_synthetic_nusc"] = write_synthetic_nusc(tmp / "synth", 1, n_points=2000, n_objects=2).name
+with contextlib.redirect_stdout(io.StringIO()):
+    r = overfit_sanity.run(flagship, 2, "cpu", narrow, extent=8.0, n_points=7000, log=lambda s: None)
+results["overfit_sanity"] = len(r["losses"])
+with contextlib.redirect_stdout(io.StringIO()) as text:
+    try:
+        metric_delta.main(["--help"])
+    except SystemExit:
+        pass
+results["metric_delta"] = "--scenes" in text.getvalue()
+
+def foreign(name):
+    top = name.split(".")[0]
+    return top.startswith("jax") or top.startswith("flax") or top == "pillarnext_tpu"
+
+print(json.dumps({"results": results, "loaded": sorted(m for m in sys.modules if foreign(m))}))
+"""
+
+
+@pytest.fixture(scope="module")
+def learning_run():
+    """One fresh interpreter that imports only the port: a train step of
+    the narrowed flagship with and without ``remat_save_conv_out`` (each
+    sparse block and the neck recomputed) timed by ``profiling``, the
+    reference-checkpoint import CLI, the synthetic nuScenes writer, two
+    steps of ``tools.overfit_sanity`` and ``tools.metric_delta --help``."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", LEARNING_SCRIPT,
+         str(REPO / "pillarnext_tpu/configs/experiments/nusc_det_pp18_aspp_iou_sp.yaml")],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("entry", ["recompute", "profiling", "import_checkpoint", "write_synthetic_nusc",
+                                   "overfit_sanity", "metric_delta"])
+def test_port_learning_entry_points_import_no_jax(entry, learning_run):
+    """The recomputed train step, ``utils.profiling``, ``cli.import_checkpoint``,
+    ``utils.synth.write_synthetic_nusc`` and the two learning tools load no
+    JAX or JAX package."""
+    assert learning_run["loaded"] == []
+    result = learning_run["results"][entry]
+    if entry == "recompute":
+        assert len(result) == 2 and result[0] == result[1]  # the policy changes what is kept, not the step
+    elif entry == "import_checkpoint":
+        assert result == ["meta", "model", "opt_state"]
+    elif entry == "write_synthetic_nusc":
+        assert result == "infos_synth.pkl"
+    elif entry == "overfit_sanity":
+        assert result == 2
+    else:
+        assert result is True

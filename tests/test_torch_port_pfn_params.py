@@ -19,6 +19,7 @@ import torch
 
 from pillarnext_tpu.models.pillar_encoder import PillarFeatureNet as JaxPFN
 from tests.test_torch_port_reader import PC, VS, _points, _port_reader, _random_bn
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CAPACITY = 4096
 

@@ -25,6 +25,7 @@ from pillarnext_tpu.ops import voxelize as jax_voxelize
 from pillarnext_tpu.utils.synth import lidar_like_points
 from pillarnext_tpu_torch.models.pillar_encoder import PillarFeatureNet
 from pillarnext_tpu_torch.ops import compact, voxelize
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PC = (-25.0, -25.0, -5.0, 25.0, 25.0, 3.0)
 VS = (0.4, 0.4, 8.0)

@@ -48,6 +48,7 @@ from pillarnext_tpu_torch.ops.segscan import TILE, device_launches, pillar_max_b
 from pillarnext_tpu_torch.train.train_state import AdamW, cosine_onecycle_schedule
 from pillarnext_tpu_torch.utils import synth
 from test_torch_port_cuda import SEGMENT_LAYOUTS, group_rows, segment_layout
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _close(got, want, rtol=1e-5):

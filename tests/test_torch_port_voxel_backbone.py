@@ -25,6 +25,7 @@ from pillarnext_tpu.models.voxel_encoder import VoxelFeatureNet as JaxVoxelFeatu
 from pillarnext_tpu_torch.models.resnet import SparseResNet3D
 from pillarnext_tpu_torch.models.voxel_encoder import VoxelFeatureNet
 from pillarnext_tpu_torch.utils.torch_import import export_voxelnext
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LAYERS = (1, 1, 1, 1)
 STRIDES = (1, 2, 2, 2)

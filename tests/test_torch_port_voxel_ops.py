@@ -28,6 +28,7 @@ from pillarnext_tpu.ops import voxelize as jax_voxelize
 from pillarnext_tpu_torch.models.voxel_encoder import VoxelFeatureNet
 from pillarnext_tpu_torch.ops import sparse_down, subm_conv, voxelize
 from pillarnext_tpu_torch.ops.compact import compactify, invert_slot_map
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 VOXEL = [0.4, 0.4, 0.25]
 PC_RANGE = [-6.4, -6.4, -3.0, 6.4, 6.4, 3.0]  # grid 32 x 32 x 24

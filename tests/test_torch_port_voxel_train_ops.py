@@ -36,6 +36,7 @@ from pillarnext_tpu_torch.models import pillar_encoder, voxel_encoder
 from pillarnext_tpu_torch.models.layers import BN_EPS_SPARSE, BN_MOMENTUM_SPARSE, BatchNorm
 from pillarnext_tpu_torch.ops import scatter, sparse_down, subm_conv
 from pillarnext_tpu_torch.ops.compact import compactify, invert_slot_map
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SPATIAL = (8, 12, 12)  # (D, H, W)
 B = 2

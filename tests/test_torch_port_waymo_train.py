@@ -36,6 +36,7 @@ from tests.test_torch_port_voxel_train import (
     relu_flips,
 )
 from tests.test_torch_port_waymo_e2e import NARROWED
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SEED = 0
 
