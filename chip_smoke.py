@@ -118,6 +118,19 @@ width, random weights from a seed:
 - overfit_flagship: ``tools.overfit_sanity`` on the flagship at its
   1344^2 grid, ``OVERFIT_STEPS`` steps on JAX's planted scene, which
   must meet JAX's bar (the loss halves, 8 of 10 objects within 2 m);
+- parity_flagship, parity_flagship_trained, parity_voxel18_trained,
+  parity_mvf_trained (``PARITY_PHASES``): the port's f32 detections,
+  served by AdaptivePredictor, held against its copy of the reference
+  mirror (``tools/reference_mirror*.py``, in full f32 on the card) on the
+  same frame with the same weights at the configs' grids: the flagship
+  with the mirror's random weights (200k points; JAX's bar: 85% matched,
+  box delta under 0.5, score delta under 2e-3), then the flagship,
+  voxel18 and MVF each overfitted ``PARITY_STEPS`` bf16 steps on a
+  planted scene of 24 objects (200k points; exact set equality, more than
+  0 detections, box 1e-2 and score 1e-3 for the flagship, 5e-2 and 5e-3
+  for the 3-D families); each prints both sides' counts, the
+  matched and same-label fractions, the largest deltas, the mirror's,
+  the port's and the overfit's seconds and its launches;
 
 then holds each kernel against its plain PyTorch version at the shapes
 those paths give it.  Kernel 3 (``sorted_segment_bcast``) also carries
@@ -175,7 +188,11 @@ PROFILED_CALLS = 20
 PROFILE_WINDOWS = 8  # torch.profiler at times loses a whole window's records
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel, launched between profiled calls
 LATENCY_FRAMES = 10
-FRAME_PROFILE_CALLS = 2  # each path's profiled predicts (and reader + backbone calls) at the end
+# torch.profiler's processing of a window, not its calls, takes most of a
+# profiled phase's seconds: one call or step a window keeps the script
+# inside its time limit
+FRAME_PROFILE_CALLS = 1  # each path's profiled predicts (and reader + backbone calls) at the end
+TRAIN_PROFILE_STEPS = 1  # each train path's profiled steps
 TRAIN_STEPS = 5
 CLI_SAMPLES = 8  # train and val samples of the CLIs' nuScenes tree
 DDP_BF16_STEPS = 3
@@ -231,6 +248,12 @@ OPTION_TRAIN = {
 }
 LARGE_BATCH = 8  # train_waymo_voxel18_b8: what the recompute's memory buys
 OVERFIT_STEPS = 300  # overfit_flagship: JAX's default (tools/overfit_sanity.py)
+# the port's f32 detections against its copy of the reference mirror at the
+# configs' grids (pillarnext_tpu_torch/tools/*_parity.py); what each prints
+PARITY_PHASES = ("parity_flagship", "parity_flagship_trained", "parity_voxel18_trained", "parity_mvf_trained")
+PARITY_FIELDS = ("detections", "matched", "same_label", "max_box_delta", "max_score_delta", "mirror_seconds",
+                 "port_seconds", "overfit_seconds", "launches")
+PARITY_STEPS = 300  # voxel18's and MVF's overfits (the BN statistics need ~300, tools/voxel_parity.py:22-27)
 # voxel18 with the dense (B, D, H, W, C) volume and the dense 3-D backbone:
 # served at the config's 40 x 1344 x 1344 grid, trained on a 40 x 672 x 672 one
 VOXEL_DENSE = "+model.reader.output=dense"
@@ -817,7 +840,7 @@ def train_breakdown(model, optimizer, batch, device):
             "clip_adamw": opt_ms}
 
 
-def profile_train_steps(model, optimizer, batches, device, steps: int = 2) -> dict:
+def profile_train_steps(model, optimizer, batches, device, steps: int = TRAIN_PROFILE_STEPS) -> dict:
     """``profile_device`` of ``steps`` train steps."""
     from pillarnext_tpu_torch.train.train_state import train_step
     from pillarnext_tpu_torch.train.trainer import batch_to_device
@@ -1070,7 +1093,7 @@ def predict_kernel_inputs(model, points, mask, gathers: tuple, densifies: tuple,
 def train_path(cfg, batches, device, work_dir, path: str, required: tuple):
     """A training main path, bf16, B = 4, through the port's Trainer: its
     record carries the step times, losses, the last step's tables (each
-    active count beside its rows), peak memory, a breakdown and a 2-step
+    active count beside its rows), peak memory, a breakdown and a 1-step
     device profile; it fails unless every kernel in ``required`` launched
     and every loss is finite (the Trainer raises on an overflowed table)."""
     from pillarnext_tpu_torch.train.trainer import Trainer
@@ -1283,7 +1306,7 @@ def train_modes(batches, device) -> dict:
     (``TRAIN_MODES``), trained bf16 at B = 4 through the Trainer for
     ``MODE_TRAIN_STEPS`` steps (``train_path``: step times, peak memory,
     each table's and tile map's active count beside its rows, a breakdown
-    and a 2-step device profile), each path failing unless kernels 2 and 3
+    and a 1-step device profile), each path failing unless kernels 2 and 3
     launched (and the tile gathers, on the tile paths) and no table
     overflowed; then one f32 ``tile_stride1`` step whose train-mode BEV
     must be bit-identical between the kernels and their plain versions.
@@ -1392,13 +1415,10 @@ def reference_checkpoint(common: list, tmp: Path, overrides: list, counters, tra
     from pillarnext_tpu_torch.train import checkpoint as ckpt_lib
     from pillarnext_tpu_torch.utils.builders import build_model
     from pillarnext_tpu_torch.utils.config import load_experiment
+    from pillarnext_tpu_torch.utils.torch_import import state_dict_to_reference
 
     source = ckpt_lib.load_checkpoint(tmp / "work/checkpoints/epoch_1.pt")["model"]
-    sd = {}
-    for k, v in source.items():
-        sd["module." + k] = v.permute(0, 2, 3, 1).contiguous() if k.startswith("backbone.blocks.") and v.dim() == 4 else v
-        if k.endswith(".running_var"):
-            sd["module." + k.removesuffix("running_var") + "num_batches_tracked"] = torch.tensor(2)
+    sd = state_dict_to_reference(source, checkpoint=True)
     torch.save({"state_dict": sd, "epoch": 1}, tmp / "reference.pth")
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(sys.stderr):
@@ -1446,6 +1466,61 @@ def overfit_flagship(device) -> dict:
     for name in KERNELS[1:]:
         if not launches[name]:
             raise AssertionError(f"overfit_flagship never launched {name}")
+    return launches
+
+
+def parity_record(phase: str, rec: dict, launches: dict) -> dict:
+    """A parity phase's JSON line: a tool's record without its detection
+    sets, the counts of both sides as ``detections`` [mirror, port], the
+    overfit's seconds (null with random weights) and the launches."""
+    from pillarnext_tpu_torch.tools.parity import printable
+
+    return {"phase": phase, **printable(rec), "detections": [rec["ref"], rec["ours"]],
+            "overfit_seconds": rec.get("overfit_seconds"), "launches": launches}
+
+
+def parity_phase(phase: str, run, required: tuple) -> dict:
+    """One parity phase: ``run`` (a parity tool's ``run``, which raises on a
+    miss against its bar) with the launch counters set to 0 just before it
+    and read just after; prints ``parity_record`` and fails unless every
+    kernel in ``required`` launched.  Returns the launches."""
+    counters = kernel_counters()
+    for k in counters:
+        k.launches = 0
+    with contextlib.redirect_stdout(sys.stderr):
+        rec = run(log=lambda s: print(s, file=sys.stderr, flush=True))
+    launches = {k.__name__: k.launches for k in counters}
+    emit(parity_record(phase, rec, launches))
+    missing = [name for name in required if not launches[name]]
+    if missing:
+        raise AssertionError(f"{phase} never launched {missing}")
+    return launches
+
+
+def parity_paths(device) -> dict:
+    """The port's f32 detections held against its copy of the reference
+    mirror (``tools/*_parity.py``, the mirror in full f32 on the card) at
+    the configs' grids, 200k points: the flagship with random weights
+    (JAX's bar: 85% matched, box 0.5, score 2e-3); the flagship, voxel18
+    and MVF each overfitted ``PARITY_STEPS`` steps on a planted scene of 24
+    objects (exact set equality, more than 0 detections; box 1e-2 and
+    score 1e-3 for the flagship, 5e-2 and 5e-3 for the 3-D families).
+    Returns each phase's launches."""
+    from pillarnext_tpu_torch.tools import flagship_parity, mvf_parity, voxel_parity
+
+    runs = {
+        "parity_flagship": (flagship_parity, 0, KERNELS),
+        "parity_flagship_trained": (flagship_parity, PARITY_STEPS, KERNELS),
+        "parity_voxel18_trained": (voxel_parity, PARITY_STEPS, KERNELS[1:]),
+        "parity_mvf_trained": (mvf_parity, PARITY_STEPS, KERNELS[1:]),
+    }
+    launches = {}
+    for phase in PARITY_PHASES:
+        tool, steps, required = runs[phase]
+        launches[phase] = parity_phase(
+            phase, lambda log, tool=tool, steps=steps: tool.run(N_POINTS, overfit=steps, device=device, log=log),
+            required)
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -2555,6 +2630,11 @@ def main() -> None:
     # and finds its objects (JAX's bar)
     overfit_launches = overfit_flagship(device)
 
+    # phase 8f: full-scale parity: the port's f32 detections against its
+    # copy of the reference mirror (f32 on the card), random and trained
+    # weights, the flagship, voxel18 and MVF at their configs' grids
+    parity_launches = parity_paths(device)
+
     # phase 9: each kernel vs its plain version at the main paths' shapes (after
     # the main paths, so that torch.profiler has not traced the process they run in)
     gen = torch.Generator().manual_seed(0)
@@ -2648,7 +2728,7 @@ def main() -> None:
              **{path: w["launches"] for path, w in waymo.items()},
              "train": train_launches, "train_voxel18": vtrain_launches, **wtrain,
              "cli_train": cli_train_launches, "cli_test": cli_test_launches,
-             "reference_checkpoint": ref_launches, "overfit_flagship": overfit_launches,
+             "reference_checkpoint": ref_launches, "overfit_flagship": overfit_launches, **parity_launches,
              "cli_train_ddp": cli_ddp_launches, "cli_waymo": cli_waymo_launches,
              "cli_waymo_test": cli_waymo_test_launches, "ddp_train": ddp_launches, "ddp_nccl": nccl_launches,
              **{path: w["launches"] for path, w in modes.items()}, **train_mode_launches,

@@ -27,6 +27,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from pillarnext_tpu_torch.models.pillar_encoder import PillarFeatureNet
 from pillarnext_tpu_torch.train import checkpoint as ckpt_lib
 from pillarnext_tpu_torch.utils import builders
 from pillarnext_tpu_torch.utils.config import load_experiment
@@ -44,6 +45,8 @@ def main(argv=None) -> Path:
 
     cfg = load_experiment(args.config, args.overrides)
     model = builders.build_model(cfg["model"], device=args.device)
+    if not isinstance(model.reader, PillarFeatureNet):
+        raise ValueError(f"reference checkpoints import into the pillar family, not a {type(model.reader).__name__}")
     model.load_state_dict(state_dict_from_reference(load_torch_state_dict(args.torch_checkpoint), model),
                           strict=True)
     opt, _ = builders.build_optimizer(cfg, 1, list(model.parameters()))

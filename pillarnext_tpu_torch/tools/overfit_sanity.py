@@ -82,18 +82,19 @@ def hits(boxes: np.ndarray, gt: np.ndarray, radius: float = 2.0) -> int:
     return sum(float(np.linalg.norm(boxes[:, :2] - g[:2], axis=1).min()) < radius for g in gt)
 
 
-def run(config: str = "flagship", steps: int = 300, device="cuda:0", overrides=(), extent: float = 50.0,
-        n_points: int = 60_000, log=print) -> dict:
-    """Overfit, decode and count; returns the losses logged every 5 steps,
-    the seconds, the detections' count and the hits (top 10 and all).
-    Checks nothing: ``check`` holds the result to JAX's bar."""
-    path = Path(config) if config not in CONFIGS else EXPERIMENTS / CONFIGS[config]
-    log(f"config: {path.name}, steps: {steps}")
-    cfg = load_experiment(path, list(overrides))
+def train_on_scene(cfg: dict, pts: np.ndarray, gt: np.ndarray, names: np.ndarray, steps: int, device="cuda:0",
+                   log=print, raise_on_overflow: bool = False) -> tuple:
+    """The model of ``cfg`` (its dtype; weights from seed 0) trained for
+    ``steps`` Trainer steps on one labelled scene, as JAX's overfits train
+    (``AssignLabel`` with 500 objects, collate, AdamW at a one-cycle peak
+    of 1.5e-3 warming up over 20% of the steps).  Returns (model in train
+    mode, the device batch, the losses logged every 5 steps and at the
+    last, seconds, the first step's non-zero ``*_overflow`` counters: the
+    active sites its tables dropped).  With ``raise_on_overflow`` a first
+    or last step that dropped any raises: an overflowed table trains on a
+    truncated scene."""
     model = builders.build_model(cfg["model"], device=device, generator=torch.Generator().manual_seed(0),
                                  train=True)
-
-    pts, gt, names = scene(extent, n_points)
     pl = cfg["data"]["train_dataset"]["prepare_label"]["centermap"]
     assigner = AssignLabel(
         tasks=pl["tasks"], gaussian_overlap=pl["gaussian_overlap"], max_objs=500,
@@ -102,21 +103,40 @@ def run(config: str = "flagship", steps: int = 300, device="cuda:0", overrides=(
     )
     res = assigner({"token": "t", "points": pts, "annotations": {"gt_boxes": gt, "gt_names": names}})
     del res["annotations"]
-    batch = collate([res], max_points=n_points)
+    batch = collate([res], max_points=len(pts))
     batch.pop("token", None)
 
     opt, schedule = make_optimizer(list(model.parameters()), max_lr=1.5e-3, total_steps=steps, pct_start=0.2)
     trainer = Trainer(model, optimizer=opt, lr_schedule=schedule, device=device)
     example = batch_to_device(batch, trainer.device)
     t0 = time.perf_counter()
-    losses = []
+    losses, dropped = [], {}
     for i in range(steps):
         scalars, _ = trainer.train_step(example)
+        if i == 0:
+            dropped = {k: int(v) for k, v in scalars["telemetry"].items() if k.endswith("_overflow") and int(v)}
+        if raise_on_overflow and i in (0, steps - 1) and int(scalars["overflow"]):
+            raise RuntimeError(f"capacity overflow in overfit step {i}: "
+                               f"{ {k: int(v) for k, v in scalars['telemetry'].items()} }")
         if i % 5 == 0 or i == steps - 1:
             losses.append(float(scalars["loss"]))
             log(f"step {i}: loss {losses[-1]:.3f}")
     seconds = time.perf_counter() - t0
     log(f"{steps} steps in {seconds:.0f}s")
+    return model, example, losses, seconds, dropped
+
+
+def run(config: str = "flagship", steps: int = 300, device="cuda:0", overrides=(), extent: float = 50.0,
+        n_points: int = 60_000, log=print) -> dict:
+    """Overfit, decode and count; returns the losses logged every 5 steps,
+    the seconds, the detections' count, the hits (top 10 and all) and the
+    active sites the first step's tables dropped.  Checks nothing:
+    ``check`` holds the result to JAX's bar."""
+    path = Path(config) if config not in CONFIGS else EXPERIMENTS / CONFIGS[config]
+    log(f"config: {path.name}, steps: {steps}")
+    cfg = load_experiment(path, list(overrides))
+    pts, gt, names = scene(extent, n_points)
+    model, example, losses, seconds, dropped = train_on_scene(cfg, pts, gt, names, steps, device, log)
 
     model.train()
     with torch.no_grad(), model.precision():
@@ -136,7 +156,7 @@ def run(config: str = "flagship", steps: int = 300, device="cuda:0", overrides=(
         log(f"  {g[0]:7.2f} {g[1]:7.2f}  {n}")
     result = {"config": path.name, "steps": steps, "seconds": seconds, "losses": losses,
               "detections": int(valid.sum()), "hits_top10": hits(boxes[order[:10]], gt),
-              "hits_all": hits(boxes, gt)}
+              "hits_all": hits(boxes, gt), "first_step_dropped": dropped}
     log(f"recovered within 2m: top-10 {result['hits_top10']}/10, all dets {result['hits_all']}/10")
     return result
 

@@ -4,10 +4,17 @@ In: a checkpoint written by the reference (qcraftai/pillarnext, such as
 the released PillarNeXt-B weights) through ``load_torch_state_dict`` and
 ``state_dict_from_reference``, the port's counterparts of the JAX
 importer's ``load_torch_state_dict`` and ``import_pillarnext``
-(pillarnext_tpu/utils/torch_import.py:30-47, :199-376) for the pillar
-family, the only one JAX imports.  The port's modules use the reference
+(pillarnext_tpu/utils/torch_import.py:30-47, :199-376); the CLI imports
+the pillar family only, as JAX does.  The port's modules use the reference
 schema, so a reference tensor lands under its own name; only spconv's
-(O, kH, kW, I) sparse kernels change layout.
+(O, kH, kW, I) sparse kernels change layout.  The reference mirrors of
+``tools/`` use the same schema for all three families, so the same
+function carries a mirror's weights into the port.
+
+Back: ``state_dict_to_reference``, the port's weights in the reference's
+schema: for a mirror (torch layouts, a ``num_batches_tracked`` beside each
+BatchNorm), or as a reference checkpoint (``module.`` prefixes, spconv's
+sparse kernels).
 
 Out: JAX ``{params, batch_stats}`` trees -> the port's state_dict (numpy).
 The port's own copy of ``export_pillarnext``, ``export_voxelnext`` and
@@ -67,19 +74,16 @@ def conv_kernel(w: np.ndarray, in_channels: int) -> np.ndarray:
 
 
 def state_dict_from_reference(sd: dict, model: nn.Module) -> dict[str, torch.Tensor]:
-    """The port's state_dict for a pillar-family ``model`` from a reference
-    state_dict ``sd`` (``load_torch_state_dict``): ``num_batches_tracked``
-    dropped, each conv weight in torch's layout (``conv_kernel``), every
-    tensor float32.  The port keeps the per-task, per-branch schema under
-    every head option (``merge_branches`` and ``merge_tasks`` concatenate
-    at apply time), so the merged heads read these tensors as they are.
-    Raises on a missing key, a key left over, or a shape the model does
-    not take, as ``validate_against_flax`` fails on the JAX side."""
-    from pillarnext_tpu_torch.models.pillar_encoder import PillarFeatureNet
-
-    if not isinstance(model.reader, PillarFeatureNet):
-        raise ValueError(f"reference checkpoints import into the pillar family, not a {type(model.reader).__name__}")
-    sd = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+    """The port's state_dict for ``model`` from a reference state_dict
+    ``sd`` (``load_torch_state_dict``, or a reference mirror's): the keys'
+    ``module.`` prefixes and ``num_batches_tracked`` dropped, each conv
+    weight in torch's layout (``conv_kernel``), every tensor float32.  The
+    port keeps the per-task, per-branch schema under every head option
+    (``merge_branches`` and ``merge_tasks`` concatenate at apply time), so
+    the merged heads read these tensors as they are.  Raises on a missing
+    key, a key left over, or a shape the model does not take, as
+    ``validate_against_flax`` fails on the JAX side."""
+    sd = {k.removeprefix("module."): v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
     expected = model.state_dict()
     missing = sorted(set(expected) - set(sd))
     stray = sorted(set(sd) - set(expected))
@@ -95,6 +99,41 @@ def state_dict_from_reference(sd: dict, model: nn.Module) -> dict[str, torch.Ten
         if tuple(w.shape) != tuple(ref.shape):
             raise ValueError(f"reference checkpoint: {k} has shape {tuple(w.shape)}, the model takes {tuple(ref.shape)}")
         out[k] = torch.from_numpy(np.array(w, dtype=np.float32)).to(ref.dtype)
+    return out
+
+
+def sparse_kernel_names(sd: dict) -> set[str]:
+    """The weights of a port state_dict that the reference holds as spconv
+    kernels: every conv of a pillar backbone's blocks, every conv of a 3-D
+    backbone (its mapping included); a dense 2-D mapping or an MVF tower
+    holds none."""
+    names = set()
+    for key, value in sd.items():
+        if not key.startswith("backbone.") or not key.endswith(".weight") or value.dim() < 4:
+            continue
+        if value.dim() == 5 or key.startswith("backbone.blocks."):
+            names.add(key)
+    return names
+
+
+def state_dict_to_reference(sd: dict, *, checkpoint: bool = False) -> dict[str, torch.Tensor]:
+    """A port state_dict in the reference's schema, the inverse of
+    ``state_dict_from_reference``: each tensor under its own name, and a
+    ``num_batches_tracked`` (a 0-dim int64 0) after each BatchNorm's
+    ``running_var``, which is what a reference mirror's ``load_state_dict``
+    takes.  With ``checkpoint`` the layout of a reference checkpoint: keys
+    prefixed ``module.`` (DataParallel) and the sparse kernels
+    (``sparse_kernel_names``) in spconv's (O, *k, I).  The tensors are
+    ``sd``'s own, detached, on their device."""
+    sparse = sparse_kernel_names(sd) if checkpoint else set()
+    prefix = "module." if checkpoint else ""
+    out = {}
+    for k, v in sd.items():
+        v = v.detach()
+        out[prefix + k] = v.movedim(1, -1).contiguous() if k in sparse else v
+        if k.endswith(".running_var"):
+            out[prefix + k.removesuffix("running_var") + "num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.int64, device=v.device)
     return out
 
 

@@ -282,3 +282,32 @@ def test_waymo_tree_gt_database_and_nlz_filter(tmp_path, monkeypatch):
 
     sample = train.get(2, np.random.RandomState(0))
     assert sample["points"].shape[1] == 5 and len(sample["hm"]) == 2
+
+
+def test_parity_phases_print_their_fields_and_fail_on_a_miss(capsys):
+    """The four parity phases and the fields of their JSON line, from a
+    CPU run of the port's flagship tool at a small grid; a phase whose
+    tool misses its bar raises, and so does one whose kernels never
+    launched (on the CPU the wrappers take their plain versions)."""
+    import json
+
+    from pillarnext_tpu_torch.tools import flagship_parity
+    from tests.test_torch_port_parity_tools import FLAGSHIP_OVERRIDES
+
+    assert chip_smoke.PARITY_PHASES == ("parity_flagship", "parity_flagship_trained", "parity_voxel18_trained",
+                                        "parity_mvf_trained")
+    rec = flagship_parity.run(points=3000, device="cpu", overrides=FLAGSHIP_OVERRIDES, log=lambda s: None)
+    launches = {name: 1 for name in chip_smoke.KERNELS}
+    line = chip_smoke.parity_record("parity_flagship", rec, launches)
+    assert set(chip_smoke.PARITY_FIELDS) <= set(line) and line["overfit_seconds"] is None
+    assert line["detections"] == [rec["ref"], rec["ours"]] and line["launches"] == launches
+    assert json.loads(json.dumps(line))["phase"] == "parity_flagship"
+
+    def miss(log):
+        raise AssertionError("count mismatch: ref 3 vs ours 2")
+
+    with pytest.raises(AssertionError, match="count mismatch"):
+        chip_smoke.parity_phase("parity_flagship", miss, chip_smoke.KERNELS)
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.parity_phase("parity_flagship", lambda log: rec, chip_smoke.KERNELS)
+    assert '"phase": "parity_flagship"' in capsys.readouterr().out

@@ -673,3 +673,52 @@ def test_port_learning_entry_points_import_no_jax(entry, learning_run):
         assert result == 2
     else:
         assert result is True
+
+
+PARITY_TOOL_SCRIPT = r"""
+import importlib, json, sys
+import torch
+from pillarnext_tpu_torch.tools import parity
+from pillarnext_tpu_torch.utils.builders import build_model
+from pillarnext_tpu_torch.utils.config import load_experiment
+
+name, overrides = sys.argv[1], json.loads(sys.argv[2])
+tool = importlib.import_module(f"pillarnext_tpu_torch.tools.{name}")
+if name == "flagship_parity":
+    rec = tool.main(["--device", "cpu", "--points", "1500", *overrides])
+else:
+    # the trained-weight path with a train-mode model's weights, its head maps held
+    cfg = load_experiment(tool.CONFIG, overrides)
+    model = build_model(cfg["model"], device="cpu", generator=torch.Generator().manual_seed(0), train=True)
+    pts, _, _ = parity.planted_scene(cfg["model"], 1500, 0)
+    scene = (torch.from_numpy(pts[None]), torch.ones(1, len(pts), dtype=torch.bool))
+    rec = tool.run(device="cpu", overrides=overrides, heads=True, trained=(model.state_dict(), scene))
+
+def foreign(name):
+    top = name.split(".")[0]
+    return top.startswith(("jax", "flax", "tests", "torch_mirror")) or top == "pillarnext_tpu"
+
+print(json.dumps({"mode": rec["mode"], "heads": "heads" in rec,
+                  "loaded": sorted(m for m in sys.modules if foreign(m))}))
+"""
+
+
+@pytest.mark.parametrize("tool", ["flagship_parity", "voxel_parity", "mvf_parity"])
+def test_parity_tool_imports_no_jax(tool):
+    """Each full-scale parity tool, at a small grid on the CPU (the
+    flagship's random-weight verdict through its CLI, voxel18's and MVF's
+    trained-weight path with a train-mode model's weights, holding the head
+    maps), in a fresh interpreter that loads no module of JAX, flax, the
+    JAX package, the tests or their mirrors."""
+    from tests.test_torch_port_parity_tools import FAMILIES
+
+    family = {"flagship_parity": "flagship", "voxel_parity": "voxel18", "mvf_parity": "mvf"}[tool]
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", PARITY_TOOL_SCRIPT, tool, json.dumps(FAMILIES[family][1])],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert (result["mode"], result["heads"]) == (("random", False) if tool == "flagship_parity" else ("trained", True))
+    assert result["loaded"] == []
