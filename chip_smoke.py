@@ -68,7 +68,10 @@ width, random weights from a seed:
 - serving_tile, serving_leading_down, serving_all, serving_packed,
   serving_dense_first, serving_unmasked, serving_dense_image: the
   flagship's other backbone stage modes (models/resnet.py), one override
-  of its YAML each (``SERVING_MODES``), served like the serving path: the
+  of its YAML each (``SERVING_MODES``), served like the serving path
+  (``MODE_LATENCY_FRAMES`` latency frames, as the option paths; their
+  device profiles, and those of the mode and option train paths, trace the
+  card alone): the
   tile stack (the tile capacity following the bucket, the full tile grid
   at the largest), the sparse first strided stage, the all-sparse
   backbone, the packed densify and 2x2 down conv, the dense-first and
@@ -130,7 +133,27 @@ width, random weights from a seed:
   0 detections, box 1e-2 and score 1e-3 for the flagship, 5e-2 and 5e-3
   for the 3-D families); each prints both sides' counts, the
   matched and same-label fractions, the largest deltas, the mirror's,
-  the port's and the overfit's seconds and its launches;
+  the port's and the overfit's seconds and its launches.  voxel18's and
+  MVF's trained phases (``PARITY_PROCESSES``) each run in a process of
+  their own on the card (``parity-worker``), started before
+  overfit_flagship: the overfits are host-bound, so the processes share
+  the card and the host's cores (their seconds are those of a shared
+  card); each writes its line and launches, which the script prints;
+- eval_breakdown, train_breakdown, baseline_probe, loader_bench
+  (``tool_paths``): the port's measurement tools (``pillarnext_tpu_torch/
+  tools/``) at full width: the flagship's eval pipeline cut into eight
+  cumulative prefixes of the served model (masked, B = 1: median ms,
+  device ms and launches each); its train step by truncated models
+  (B = 4: forward and backward ms apart, device ms of each, peak
+  memory; with a ``remat_save_conv_out=false`` row); the reference mirror
+  against the port's f32 predict on the card, which must first pass the
+  random-weight bar; the host loader's frames/s at 0-8 workers beside what
+  the train path's step consumes;
+- dist_train_waymo: the multi-host Waymo launcher
+  (``pillarnext_tpu_torch/tools/dist_train_waymo.sh``, torchrun) on one
+  node with one rank over NCCL, one epoch on ``cli_waymo``'s tree with its
+  evaluation; the rank's launches and loaded modules come back through a
+  ``sitecustomize`` on its path (``child_probe``);
 
 then holds each kernel against its plain PyTorch version at the shapes
 those paths give it.  Kernel 3 (``sorted_segment_bcast``) also carries
@@ -155,8 +178,9 @@ just after (in each rank's process for the multi-process paths, summed
 over the ranks), and fails unless every kernel of that path launched.
 Every process the script starts is killed at ``DDP_TIMEOUT_S`` (a hung
 collective fails the run).  Every
-phase prints one JSON line; before the last line come the card's name and
-power limit and the ``kernels`` line; the last line is ``{"ok": true,
+phase prints one JSON line with its ``seconds``; before the last line come
+the ``phase_seconds`` line, the card's name and power limit and the
+``kernels`` line; the last line is ``{"ok": true,
 "device": {...}}``.  Any mismatch raises and the script exits non-zero;
 without a CUDA device it exits non-zero before doing anything.
 """
@@ -185,9 +209,8 @@ KERNELS = ("pfn_two_layer", "monotone_row_gather", "sorted_segment_bcast")
 N_POINTS = 200_000
 TIMED_RUNS = 25
 PROFILED_CALLS = 20
-PROFILE_WINDOWS = 8  # torch.profiler at times loses a whole window's records
-MARKER = "spin_kernel"  # torch.cuda._sleep's kernel, launched between profiled calls
 LATENCY_FRAMES = 10
+MODE_LATENCY_FRAMES = 3  # the stage-mode and option serving paths (cut to keep the script inside its limit)
 # torch.profiler's processing of a window, not its calls, takes most of a
 # profiled phase's seconds: one call or step a window keeps the script
 # inside its time limit
@@ -224,7 +247,7 @@ TRAIN_MODES = {
     "train_force_dense": "+model.backbone.force_dense_train=true",
     "train_dense_image": "model.backbone.ds_layer_strides=[2,2,2,1]",
 }
-MODE_TRAIN_STEPS = 4  # the first step, then 3 timed
+MODE_TRAIN_STEPS = 3  # the first step, then 2 timed
 # the flagship with one option of its head, reader or post-processing each,
 # served beside the default path (which runs the fused eval head)
 OPTION_PATHS = {
@@ -253,7 +276,15 @@ OVERFIT_STEPS = 300  # overfit_flagship: JAX's default (tools/overfit_sanity.py)
 PARITY_PHASES = ("parity_flagship", "parity_flagship_trained", "parity_voxel18_trained", "parity_mvf_trained")
 PARITY_FIELDS = ("detections", "matched", "same_label", "max_box_delta", "max_score_delta", "mirror_seconds",
                  "port_seconds", "overfit_seconds", "launches")
+LAUNCHER = REPO / "pillarnext_tpu_torch/tools/dist_train_waymo.sh"
+BREAKDOWN_REPS = 20  # eval_breakdown: synchronised calls a prefix (JAX's tool)
+BREAKDOWN_STEPS = 5  # train_breakdown: timed steps a row after a warm-up (JAX's tool)
+LOADER_WORKERS = (0, 2, 4, 8)  # loader_bench
+LOADER_TRIPS = 4  # loader_bench: timed batches from each worker (a tree of 160 samples at 8 workers)
+PROBE_RUNS = 3  # baseline_probe: runs a side
 PARITY_STEPS = 300  # voxel18's and MVF's overfits (the BN statistics need ~300, tools/voxel_parity.py:22-27)
+PARITY_PROCESSES = ("parity_voxel18_trained", "parity_mvf_trained")  # each beside the flagship's overfits
+PARITY_TIMEOUT_S = 900  # each parity process
 # voxel18 with the dense (B, D, H, W, C) volume and the dense 3-D backbone:
 # served at the config's 40 x 1344 x 1344 grid, trained on a 40 x 672 x 672 one
 VOXEL_DENSE = "+model.reader.output=dense"
@@ -266,13 +297,29 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor
 
 
 STARTED = time.perf_counter()
+PHASE_SECONDS: dict = {}  # each phase's seconds, summed over its records (the ``phase_seconds`` line)
+RECORDS: dict = {}  # the last record of each phase
+_LAST_RECORD = [STARTED]
+
+
+def phase_key(record: dict) -> str:
+    """A phase record's name: a main path's path, else its phase (and path)."""
+    if record["phase"] == "main_path":
+        return record["path"]
+    return record["phase"] + (f"/{record['path']}" if "path" in record else "")
 
 
 def emit(record: dict) -> None:
-    """One JSON line; a phase record also carries ``script_seconds``, the
-    script's wall time when it was written (where the run's time goes)."""
+    """One JSON line; a phase record also carries ``seconds``, the wall
+    time since the phase record before it (the phase's own), and
+    ``script_seconds``, the script's wall time when it was written."""
     if "phase" in record:
-        record = {**record, "script_seconds": time.perf_counter() - STARTED}
+        now = time.perf_counter()
+        key = phase_key(record)
+        record = {**record, "seconds": now - _LAST_RECORD[0], "script_seconds": now - STARTED}
+        _LAST_RECORD[0] = now
+        PHASE_SECONDS[key] = PHASE_SECONDS.get(key, 0.0) + record["seconds"]
+        RECORDS[key] = record
     print(json.dumps(record), flush=True)
 
 
@@ -291,60 +338,12 @@ def median_ms(fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
-def split_calls(events: list) -> list:
-    """A window's device records in start order, cut at the marker kernels
-    launched between calls into one list per call; records before the
-    first marker and after the last are dropped."""
-    groups, cur = [], None
-    for e in sorted(events, key=lambda e: e.time_range.start):
-        if MARKER in e.name:
-            if cur is not None:
-                groups.append(cur)
-            cur = []
-        elif cur is not None:
-            cur.append(e)
-    return groups
-
-
 def device_profile(fn, calls: int = PROFILED_CALLS, launches: int | None = None) -> dict:
-    """Device time of one call under torch.profiler: the summed duration of
-    every CUDA kernel, copy and fill that one call launched, averaged over
-    the whole calls of a window of ``calls`` (after one warm-up call); the
-    same split by kernel name; the device records of a whole call; and how
-    many calls were whole.  Unlike ``median_ms`` it leaves out the host
-    time of the wrapper and of the launches.
+    """``utils/profiling.device_profile``: the device time of one call
+    over the whole calls of a window of ``calls``."""
+    from pillarnext_tpu_torch.utils import profiling
 
-    torch.profiler at times loses device records (on the H100: one in most
-    windows, or all of a window).  A marker kernel (``torch.cuda._sleep``)
-    launched between calls cuts the window into calls, and a call counts
-    only when it holds ``launches`` records (by default the count most
-    calls hold): a lost record drops its call, never part of one.  A
-    window with no whole call is profiled again, up to
-    ``PROFILE_WINDOWS`` times."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(PROFILE_WINDOWS):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                torch.cuda._sleep(1)
-                fn()
-            torch.cuda._sleep(1)
-            torch.cuda.synchronize()
-        groups = split_calls([e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA])
-        sizes = [len(g) for g in groups if g]
-        want = launches if launches is not None else max(set(sizes), key=sizes.count, default=0)
-        whole = [g for g in groups if g and len(g) == want]
-        if whole:
-            break
-    else:
-        raise AssertionError(f"torch.profiler recorded no whole call in {PROFILE_WINDOWS} windows")
-    by_name: dict = {}
-    for e in (e for g in whole for e in g):
-        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.device_time / 1e3 / len(whole)
-    return {"device_ms": sum(by_name.values()), "device_ms_by_kernel": by_name,
-            "device_launches_per_call": want, "device_whole_calls": len(whole), "device_calls": calls}
+    return profiling.device_profile(fn, calls, launches)
 
 
 def device_ms(fn, calls: int = PROFILED_CALLS) -> float:
@@ -582,8 +581,9 @@ def check_gather(reader, points, mask, slot, cap, gen, device, records, path_cas
 
     cases = [
         ("densify", random_table(cap, 64, torch.bfloat16), slot_of_dense),
-        ("pfn_back_gather", random_table(cap, 32, torch.bfloat16), slot),
-        ("cluster_mean_gather", random_table(cap, 3, torch.float32), slot),
+        # the point gathers read the (cap + 1)-row table, its dump row too
+        ("pfn_back_gather", random_table(cap + 1, 32, torch.bfloat16), slot),
+        ("cluster_mean_gather", random_table(cap + 1, 3, torch.float32), slot),
         *path_cases,
     ]
     for name, table, idx in cases:
@@ -840,24 +840,28 @@ def train_breakdown(model, optimizer, batch, device):
             "clip_adamw": opt_ms}
 
 
-def profile_train_steps(model, optimizer, batches, device, steps: int = TRAIN_PROFILE_STEPS) -> dict:
+def profile_train_steps(model, optimizer, batches, device, steps: int = TRAIN_PROFILE_STEPS, ops: bool = True) -> dict:
     """``profile_device`` of ``steps`` train steps."""
     from pillarnext_tpu_torch.train.train_state import train_step
     from pillarnext_tpu_torch.train.trainer import batch_to_device
 
     it = iter(batches[:steps])
-    return profile_device(lambda: train_step(model, optimizer, batch_to_device(next(it), device)), steps)
+    return profile_device(lambda: train_step(model, optimizer, batch_to_device(next(it), device)), steps, ops)
 
 
-def profile_device(run, steps: int) -> dict:
+def profile_device(run, steps: int, ops: bool = True) -> dict:
     """Device time of ``steps`` calls of ``run`` (a train step, a frame)
     under torch.profiler: the card's busy share of the wall time, kernel
     launches, and the kernels and the PyTorch ops whose kernels took the
-    most device time."""
+    most device time.  Without ``ops`` only the card's activity is traced
+    (most of a profile's processing is its host ops): no top ops (null),
+    and the host runs untraced, so the wall time and idle share are those
+    of the calls alone."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if ops else [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             run()
@@ -870,7 +874,7 @@ def profile_device(run, steps: int) -> dict:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.device_time / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:10]
+    top_ops = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)[:10] if ops else None
     return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
             "device_busy_ms_per_step": busy_ms / steps,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
@@ -878,9 +882,9 @@ def profile_device(run, steps: int) -> dict:
             "top_kernels_ms_per_step": [
                 {"name": k[:90], "ms": t / steps, "launches": n / steps} for k, (t, n) in top
             ],
-            "top_ops_ms_per_step": [
+            "top_ops_ms_per_step": None if top_ops is None else [
                 {"op": e.key[:60], "ms": e.self_device_time_total / 1e3 / steps, "calls": e.count / steps}
-                for e in ops if e.self_device_time_total > 0
+                for e in top_ops if e.self_device_time_total > 0
             ]}
 
 
@@ -946,11 +950,9 @@ def serving_model(model_cfg, device):
 
 def kernel_counters():
     """The three kernel wrappers, whose ``launches`` count their launches."""
-    from pillarnext_tpu_torch.ops.gather import monotone_row_gather
-    from pillarnext_tpu_torch.ops.pfn import pfn_two_layer
-    from pillarnext_tpu_torch.ops.segscan import sorted_segment_bcast
+    from pillarnext_tpu_torch.utils.profiling import kernel_wrappers
 
-    return pfn_two_layer, monotone_row_gather, sorted_segment_bcast
+    return kernel_wrappers()
 
 
 def table_report(model, tel: dict, bucket: int, batch: int = 1, tiles: int | None = None) -> dict:
@@ -1090,12 +1092,13 @@ def predict_kernel_inputs(model, points, mask, gathers: tuple, densifies: tuple,
             named(sums, ss, "the predict's segment sums"))
 
 
-def train_path(cfg, batches, device, work_dir, path: str, required: tuple):
+def train_path(cfg, batches, device, work_dir, path: str, required: tuple, ops: bool = True):
     """A training main path, bf16, B = 4, through the port's Trainer: its
     record carries the step times, losses, the last step's tables (each
     active count beside its rows), peak memory, a breakdown and a 1-step
-    device profile; it fails unless every kernel in ``required`` launched
-    and every loss is finite (the Trainer raises on an overflowed table)."""
+    device profile (its host ops too with ``ops``); it fails unless every
+    kernel in ``required`` launched and every loss is finite (the Trainer
+    raises on an overflowed table)."""
     from pillarnext_tpu_torch.train.trainer import Trainer
     from pillarnext_tpu_torch.utils.builders import build_model, build_optimizer
 
@@ -1126,7 +1129,7 @@ def train_path(cfg, batches, device, work_dir, path: str, required: tuple):
     cap = getattr(model.reader, "train_pillar_capacity", None) or model.reader.capacity
     rec["tables_last_step"] = table_report(model, tel, cap, batch_size)
     rec["breakdown_ms"] = train_breakdown(model, opt, batches[0], device)
-    rec["profile"] = profile_train_steps(model, opt, batches, device)
+    rec["profile"] = profile_train_steps(model, opt, batches, device, ops=ops)
     emit(rec)
     if len(losses) < len(batches) or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{path} path losses: {losses}")
@@ -1279,7 +1282,7 @@ def serving_modes(device) -> dict:
         mcfg = load_experiment(FLAGSHIP, [override])["model"]
         model = build_model(mcfg, device=device, generator=torch.Generator().manual_seed(0))
         with launches_through(tile_subm, "monotone_row_gather", gather.monotone_row_gather) as tile_launches:
-            _, launches = serving_path(path, mcfg, model, device, KERNELS)
+            _, launches = serving_path(path, mcfg, model, device, KERNELS, MODE_LATENCY_FRAMES)
         rec = {"phase": f"{path}_vs_leading", "override": override, "tile_gather_launches": tile_launches[0]}
         with torch.inference_mode():
             dets = model.predict(points, mask, **tile_kwargs(model, model.reader.capacity, model.reader.capacity))
@@ -1319,7 +1322,8 @@ def train_modes(batches, device) -> dict:
         mcfg = load_experiment(FLAGSHIP, [override])
         with (tempfile.TemporaryDirectory(dir=REPO) as work_dir,
               launches_through(tile_subm, "monotone_row_gather", gather.monotone_row_gather) as tile_launches):
-            model, out[path] = train_path(mcfg, batches[:MODE_TRAIN_STEPS], device, work_dir, path, KERNELS[1:])
+            model, out[path] = train_path(mcfg, batches[:MODE_TRAIN_STEPS], device, work_dir, path, KERNELS[1:],
+                                          ops=False)
         emit({"phase": f"{path}_tile_gathers", "override": override, "tile_gather_launches": tile_launches[0]})
         if "tile" in path and tile_launches[0] == 0:
             raise AssertionError(f"the {path} path never launched kernel 2 through the tile gathers")
@@ -1479,48 +1483,138 @@ def parity_record(phase: str, rec: dict, launches: dict) -> dict:
             "overfit_seconds": rec.get("overfit_seconds"), "launches": launches}
 
 
-def parity_phase(phase: str, run, required: tuple) -> dict:
-    """One parity phase: ``run`` (a parity tool's ``run``, which raises on a
-    miss against its bar) with the launch counters set to 0 just before it
-    and read just after; prints ``parity_record`` and fails unless every
-    kernel in ``required`` launched.  Returns the launches."""
+def counted_run(run) -> tuple:
+    """(``run(log=...)``, each kernel's launches in it): the launch
+    counters set to 0 just before and read just after; the run's text goes
+    to stderr."""
     counters = kernel_counters()
     for k in counters:
         k.launches = 0
     with contextlib.redirect_stdout(sys.stderr):
         rec = run(log=lambda s: print(s, file=sys.stderr, flush=True))
-    launches = {k.__name__: k.launches for k in counters}
-    emit(parity_record(phase, rec, launches))
-    missing = [name for name in required if not launches[name]]
+    return rec, {k.__name__: k.launches for k in counters}
+
+
+def emit_counted(phase: str, line: dict, required: tuple) -> dict:
+    """Prints a counted phase's line; fails unless every kernel in
+    ``required`` launched.  Returns the launches."""
+    emit(line)
+    missing = [name for name in required if not line["launches"][name]]
     if missing:
         raise AssertionError(f"{phase} never launched {missing}")
+    return line["launches"]
+
+
+def counted_phase(phase: str, run, required: tuple, record) -> dict:
+    """One phase of a tool: ``run(log=...)`` (the tool's ``run``) under
+    ``counted_run``; prints ``record(phase, the tool's record, launches)``
+    and fails unless every kernel in ``required`` launched.  Returns the
+    launches."""
+    rec, launches = counted_run(run)
+    return emit_counted(phase, record(phase, rec, launches), required)
+
+
+def parity_phase(phase: str, run, required: tuple) -> dict:
+    """One parity phase (``counted_phase``): ``run`` is a parity tool's
+    ``run``, which raises on a miss against its bar; prints
+    ``parity_record``."""
+    return counted_phase(phase, run, required, parity_record)
+
+
+def tool_record(phase: str, rec: dict, launches: dict) -> dict:
+    return {"phase": "main_path", "path": phase, **rec, "launches": launches}
+
+
+def tool_paths(device, step_ms: float) -> dict:
+    """The measurement tools at full width, each a ``counted_phase``:
+    ``eval_breakdown`` (the flagship's eight eval prefixes, masked, B = 1,
+    ``BREAKDOWN_REPS`` calls each; kernels 1-3), ``train_breakdown`` (the
+    truncated flagships and the ``remat_save_conv_out=false`` row, B = 4,
+    ``BREAKDOWN_STEPS`` steps each; kernels 2 and 3), ``baseline_probe``
+    (the reference mirror against the port's f32 predict on the card,
+    checked at the random-weight bar first, ``PROBE_RUNS`` runs a side;
+    kernels 1-3) and ``loader_bench`` (host only: ``LOADER_TRIPS``
+    trips of each worker at ``LOADER_WORKERS`` workers, against the
+    ``step_ms`` of the train path).  Returns the device tools' launches."""
+    from pillarnext_tpu_torch.tools import baseline_probe, eval_breakdown, loader_bench, train_breakdown
+
+    runs = {
+        "eval_breakdown": (lambda log: eval_breakdown.run(1, True, N_POINTS, BREAKDOWN_REPS, device=device, log=log),
+                           KERNELS),
+        "train_breakdown": (lambda log: train_breakdown.run(4, N_POINTS, BREAKDOWN_STEPS, device=device, log=log),
+                            KERNELS[1:]),
+        "baseline_probe": (lambda log: baseline_probe.run(PROBE_RUNS, N_POINTS, device=device, log=log), KERNELS),
+    }
+    launches = {}
+    for phase, (run, required) in runs.items():
+        launches[phase] = counted_phase(phase, run, required, tool_record)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        counted_phase("loader_bench", lambda log: loader_bench.run(workers=LOADER_WORKERS, step_ms=step_ms, root=tmp,
+                                                                   trips=LOADER_TRIPS, log=log), (), tool_record)
     return launches
 
 
-def parity_paths(device) -> dict:
-    """The port's f32 detections held against its copy of the reference
-    mirror (``tools/*_parity.py``, the mirror in full f32 on the card) at
-    the configs' grids, 200k points: the flagship with random weights
-    (JAX's bar: 85% matched, box 0.5, score 2e-3); the flagship, voxel18
-    and MVF each overfitted ``PARITY_STEPS`` steps on a planted scene of 24
-    objects (exact set equality, more than 0 detections; box 1e-2 and
-    score 1e-3 for the flagship, 5e-2 and 5e-3 for the 3-D families).
-    Returns each phase's launches."""
+def parity_run(phase: str, device) -> tuple:
+    """(the run of a parity phase, the kernels it must launch): the
+    flagship with random weights (JAX's bar: 85% matched, box 0.5, score
+    2e-3); the flagship, voxel18 and MVF each overfitted ``PARITY_STEPS``
+    steps on a planted scene of 24 objects (exact set equality, more than 0
+    detections; box 1e-2 and score 1e-3 for the flagship, 5e-2 and 5e-3
+    for the 3-D families)."""
     from pillarnext_tpu_torch.tools import flagship_parity, mvf_parity, voxel_parity
 
-    runs = {
+    tool, steps, required = {
         "parity_flagship": (flagship_parity, 0, KERNELS),
         "parity_flagship_trained": (flagship_parity, PARITY_STEPS, KERNELS),
         "parity_voxel18_trained": (voxel_parity, PARITY_STEPS, KERNELS[1:]),
         "parity_mvf_trained": (mvf_parity, PARITY_STEPS, KERNELS[1:]),
-    }
+    }[phase]
+    return (lambda log: tool.run(N_POINTS, overfit=steps, device=device, log=log)), required
+
+
+def start_parity_processes(out_dir: Path) -> dict:
+    """``PARITY_PROCESSES``, each a ``parity-worker`` process of its own on
+    the card, started now: phase -> (process, its record file, its log).
+    Their overfits are host-bound, so they run beside the flagship's."""
+    procs = {}
+    for phase in PARITY_PROCESSES:
+        out, log = out_dir / f"{phase}.json", out_dir / f"{phase}.log"
+        with open(log, "w") as f:
+            proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "parity-worker", phase, str(out)],
+                                    stdout=f, stderr=subprocess.STDOUT)
+        procs[phase] = (proc, out, log)
+    return procs
+
+
+def parity_worker(phase: str, out: str) -> None:
+    """One parity phase in a process of its own (run as ``chip_smoke.py
+    parity-worker PHASE FILE``): its ``parity_record``, and the process's
+    seconds from its start, to FILE; a miss raises (a non-zero exit)."""
+    sys.path.insert(0, str(REPO))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    run, _ = parity_run(phase, device)
+    rec, launches = counted_run(run)
+    line = {**parity_record(phase, rec, launches), "process_seconds": time.perf_counter() - STARTED}
+    Path(out).write_text(json.dumps(line))
+
+
+def parity_paths(device, processes: dict) -> dict:
+    """The port's f32 detections held against its copy of the reference
+    mirror (``tools/*_parity.py``, the mirror in full f32 on the card) at
+    the configs' grids, 200k points, each phase's bar as ``parity_run``
+    gives it: the phases not in ``processes`` here, then each of
+    ``processes`` (``start_parity_processes``) awaited, its line printed
+    and its launches checked.  Returns each phase's launches."""
     launches = {}
     for phase in PARITY_PHASES:
-        tool, steps, required = runs[phase]
-        launches[phase] = parity_phase(
-            phase, lambda log, tool=tool, steps=steps: tool.run(N_POINTS, overfit=steps, device=device, log=log),
-            required)
-        torch.cuda.empty_cache()
+        if phase not in processes:
+            launches[phase] = parity_phase(phase, *parity_run(phase, device))
+            torch.cuda.empty_cache()
+    for phase, (proc, out, log) in processes.items():
+        wait_ranks([proc], [log], PARITY_TIMEOUT_S, phase)
+        launches[phase] = emit_counted(phase, json.loads(out.read_text()), parity_run(phase, device)[1])
     return launches
 
 
@@ -1556,7 +1650,7 @@ def serving_options(device) -> dict:
         mcfg = load_experiment(FLAGSHIP, [override])["model"]
         model = build_model(mcfg, device=device, generator=torch.Generator().manual_seed(0))
         required = KERNELS if model.reader.kernel_eval else KERNELS[1:]
-        _, launches = serving_path(path, mcfg, model, device, required)
+        _, launches = serving_path(path, mcfg, model, device, required, MODE_LATENCY_FRAMES)
         dets = f32_predict(mcfg, points, mask, device)
         rec = {"phase": f"{path}_vs_serving", "override": override,
                "f32_valid": [int(dets["valid"][0].sum()), int(ref["valid"][0].sum())],
@@ -1796,10 +1890,10 @@ def cli_instruments(counters):
 def cli_ddp_worker(out_dir: str, argv: list) -> None:
     """One rank of ``cli_train_ddp`` (run by torchrun as ``chip_smoke.py
     cli-ddp-worker DIR ARGV...``): ``cli.train.main(argv)`` with the
-    kernels' launches counted from the start; writes ``rank{r}.json`` with
-    its steps, the tokens of its val detections (rank 0: the union it
-    scored), whether its val epoch returned a result, its step and val
-    times and the launches."""
+    kernels' launches counted from the start; writes its ``rank_record``
+    (``rank{r}.json``) with its steps, the tokens of its val detections
+    (rank 0: the union it scored), whether its val epoch returned a
+    result and its step and val times."""
     sys.path.insert(0, str(REPO))
     from pillarnext_tpu_torch import parallel
     from pillarnext_tpu_torch.cli import train as cli_train
@@ -1810,15 +1904,13 @@ def cli_ddp_worker(out_dir: str, argv: list) -> None:
     with cli_instruments(counters) as inst, contextlib.redirect_stdout(sys.stderr):
         trained = cli_train.main(argv)
     val, = inst["val"]
-    rec = {"rank": parallel.rank(), "world_size": parallel.world_size(), "device": str(trained.device),
-           "step": trained.step, "epoch": trained.epoch, "steps_per_epoch": len(trained.train_dataloader),
-           "step_ms": inst["step_ms"], "losses": [float(v) for v in trained.epoch_losses],
-           "val_tokens": sorted(trained.last_detections), "scored": val["result"] is not None,
-           "val_ms_per_batch": [b * 1e3 for b in trained.val_timing["batch_s"]],
-           "scorer_seconds": trained.val_timing["scorer_s"],
-           "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20,
-           "launches": {k.__name__: k.launches for k in counters}}
-    (Path(out_dir) / f"rank{rec['rank']}.json").write_text(json.dumps(rec))
+    write_rank_record(out_dir, {
+        "world_size": parallel.world_size(), "device": str(trained.device), "step": trained.step,
+        "epoch": trained.epoch, "steps_per_epoch": len(trained.train_dataloader), "step_ms": inst["step_ms"],
+        "losses": [float(v) for v in trained.epoch_losses], "val_tokens": sorted(trained.last_detections),
+        "scored": val["result"] is not None, "val_ms_per_batch": [b * 1e3 for b in trained.val_timing["batch_s"]],
+        "scorer_seconds": trained.val_timing["scorer_s"],
+        "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 2**20})
     parallel.shutdown()
 
 
@@ -2063,7 +2155,7 @@ def nlz_filtered(batches: dict, root: Path, nsweeps: int) -> dict:
             "val_points_loaded_vs_unflagged": counts}
 
 
-def cli_waymo(device) -> tuple[dict, dict]:
+def cli_waymo(device) -> tuple[dict, dict, dict]:
     """The port's CLIs on a Waymo tree written here (``write_waymo_tree``),
     its GT database built by the port's ``create_groundtruth_database``
     (``dbinfos_train_1sweeps_withvelo.pkl``, the name the YAML reads):
@@ -2076,7 +2168,8 @@ def cli_waymo(device) -> tuple[dict, dict]:
     point (``nlz_filtered``), kernels 2 and 3 launched in training, 1 and 2 in
     ``val_epoch`` and in ``cli.test``, every loss is finite, the export
     holds one entry per val frame and ``cli.test``'s detections are the
-    bits of ``cli.train``'s.  Returns the launches of both runs."""
+    bits of ``cli.train``'s.  Then the multi-host launcher on the same
+    tree (``dist_train_waymo``).  Returns the launches of the three runs."""
     import os
 
     import numpy as np
@@ -2116,8 +2209,10 @@ def cli_waymo(device) -> tuple[dict, dict]:
         test_launches = cli_test_run("cli_waymo_test", common, tmp, overrides, counters, trained, "export_seconds")
         launches = rec["launches"]
         del trained
+        torch.cuda.empty_cache()
+        launcher_launches = dist_train_waymo(tmp, overrides, val_tokens)
     torch.cuda.empty_cache()
-    return launches, test_launches
+    return launches, test_launches, launcher_launches
 
 
 def cli_train_ddp(tmp: Path, common: list, overrides: list, trained, train_s: float) -> dict:
@@ -2160,6 +2255,117 @@ def cli_train_ddp(tmp: Path, common: list, overrides: list, trained, train_s: fl
     if failures:
         raise AssertionError(f"cli_train_ddp: {failures}")
     return summed
+
+
+CHILD_SITE = """# Written by chip_smoke.py (child_probe): a process started with RANK in
+# its environment writes chip_smoke.rank_record() to rank<RANK>.json at
+# its exit.  The interpreter's own sitecustomize, which this one shadows,
+# still runs.
+import atexit
+import importlib.machinery
+import importlib.util
+import os
+import sys
+
+if "RANK" in os.environ:
+    sys.path.insert(0, {repo!r})
+    import chip_smoke
+
+    atexit.register(chip_smoke.write_rank_record, {out_dir!r})
+for _path in sys.path:
+    if os.path.abspath(_path or os.curdir) == os.path.dirname(os.path.abspath(__file__)):
+        continue
+    _spec = importlib.machinery.PathFinder.find_spec("sitecustomize", [_path])
+    if _spec is not None:
+        _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+        break
+"""
+
+
+def child_probe(out_dir: Path) -> Path:
+    """A directory to put first on a child's PYTHONPATH: its
+    ``sitecustomize.py`` (``CHILD_SITE``) makes every process started with
+    ``RANK`` in its environment write its ``rank_record`` to
+    ``out_dir/rank{RANK}.json`` at its exit.  It then runs the
+    interpreter's own ``sitecustomize``, which it shadows (the H100
+    machine's Python has one)."""
+    site = out_dir / "site"
+    site.mkdir(parents=True)
+    (site / "sitecustomize.py").write_text(CHILD_SITE.format(repo=str(REPO), out_dir=str(out_dir)))
+    return site
+
+
+def foreign_modules() -> list:
+    """The modules of JAX, flax or the JAX package this process loaded."""
+    return sorted(n for n in sys.modules
+                  if n.split(".")[0].startswith(("jax", "flax")) or n.split(".")[0] == "pillarnext_tpu")
+
+
+def rank_record() -> dict:
+    """This rank's ``RANK``, its ``sys.argv``, each kernel's launches (its
+    wrappers' counts) and its ``foreign_modules``."""
+    import os
+
+    return {"rank": int(os.environ["RANK"]), "argv": sys.argv,
+            "launches": {k.__name__: k.launches for k in kernel_counters()}, "foreign_modules": foreign_modules()}
+
+
+def write_rank_record(out_dir, extra: dict | None = None) -> None:
+    """``rank_record`` and ``extra`` to ``out_dir/rank{RANK}.json``."""
+    rec = {**rank_record(), **(extra or {})}
+    (Path(out_dir) / f"rank{rec['rank']}.json").write_text(json.dumps(rec))
+
+
+def run_launcher(out_dir: Path, args: list, nproc_per_node: int = 1, timeout_s: float = DDP_TIMEOUT_S) -> list:
+    """``bash dist_train_waymo.sh ARGS`` on one node of one group at a free
+    local port, with ``child_probe`` first on the ranks' PYTHONPATH and
+    this interpreter as theirs, killed at ``timeout_s``; raises unless it
+    exits 0.  Returns each rank's ``child_probe`` record."""
+    import os
+
+    env = dict(os.environ, COORDINATOR=f"127.0.0.1:{free_port()}", PROCESS_ID="0", NUM_PROCESSES="1",
+               NPROC_PER_NODE=str(nproc_per_node), PYTHON=sys.executable)
+    env["PYTHONPATH"] = os.pathsep.join([str(child_probe(out_dir)), *filter(None, [os.environ.get("PYTHONPATH")])])
+    with open(out_dir / "launcher.log", "w") as log:
+        proc = subprocess.Popen(["bash", str(LAUNCHER), *args], env=env, stdout=log, stderr=subprocess.STDOUT)
+    wait_ranks([proc], [out_dir / "launcher.log"], timeout_s, "dist_train_waymo")
+    return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(nproc_per_node)]
+
+
+def dist_train_waymo(tmp: Path, overrides: list, val_tokens: list) -> dict:
+    """The multi-host Waymo launcher (``LAUNCHER``) on one node with one
+    process: torchrun starts ``cli.train`` of waymo_det_pp18_aspp_iou_car_sp
+    with the launcher's overrides (3 samples a card, max_lr 0.006, 36
+    epochs) and then ``overrides`` (``cli_waymo``'s tree, one epoch, its
+    workers), NCCL on cuda:0: one epoch and its ``val_epoch`` with the
+    Waymo export.  Fails unless the rank exits 0, kernels 1-3 launched, the
+    epoch's checkpoint holds its steps, the export one entry per val frame
+    and the rank loaded no JAX.  Returns the launches."""
+    import numpy as np
+
+    out_dir, work = tmp / "launcher", tmp / "work_launcher"
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    rank, = run_launcher(out_dir, ["--work-dir", str(work), *overrides])
+    seconds = time.perf_counter() - t0
+    checkpoints = sorted(str(p.relative_to(work)) for p in work.rglob("*.pt"))
+    meta = torch.load(work / "checkpoints/epoch_1.pt", map_location="cpu", weights_only=True)["meta"]
+    exported = sorted(str(t) for t in np.load(work / "results/epoch_1/waymo_preds.npz", allow_pickle=True)["tokens"])
+    emit({"phase": "main_path", "path": "dist_train_waymo", "launcher": str(LAUNCHER.relative_to(REPO)),
+          "nnodes": 1, "nproc_per_node": 1, "backend": "nccl", "launcher_overrides": ["dataloader.train.batch_size=3",
+          "scheduler.max_lr=0.006", "trainer.max_epochs=36"], "overrides": overrides, "launch_seconds": seconds,
+          "checkpoints": checkpoints, "checkpoint_meta": meta, "exported_frames": len(exported),
+          "foreign_modules": rank["foreign_modules"], "launches": rank["launches"]})
+    failures = [f"{k} never launched" for k in KERNELS if not rank["launches"][k]]
+    if checkpoints != ["checkpoints/epoch_1.pt"] or meta["epoch"] != 1 or meta["step"] < 1:
+        failures.append(f"checkpoints {checkpoints}, meta {meta}")
+    if exported != sorted(val_tokens):
+        failures.append(f"the export holds {len(exported)} frames, expected the {len(val_tokens)} val frames")
+    if rank["foreign_modules"]:
+        failures.append(f"the rank loaded {rank['foreign_modules'][:5]}")
+    if failures:
+        raise AssertionError(f"dist_train_waymo: {failures}")
+    return rank["launches"]
 
 
 def free_port() -> int:
@@ -2530,7 +2736,7 @@ def main() -> None:
         with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
             train_model, train_mode_launches[path] = train_path(
                 load_experiment(FLAGSHIP, [override]), batches[:MODE_TRAIN_STEPS], device, work_dir, path,
-                KERNELS[1:])
+                KERNELS[1:], ops=False)
         del train_model
         torch.cuda.empty_cache()
 
@@ -2620,20 +2826,33 @@ def main() -> None:
     # phase 8c': the CLIs on a Waymo tree (GT database by the port's tool,
     # NLZ-flagged points): cli.train on Waymo pp18 (2 steps, val_epoch,
     # the export) then cli.test
-    cli_waymo_launches, cli_waymo_test_launches = cli_waymo(device)
+    cli_waymo_launches, cli_waymo_test_launches, launcher_launches = cli_waymo(device)
 
     # phase 8d: data-parallel training, 2 ranks over gloo on the card (an
     # f32 step against 1 process, then timed bf16 steps), 1 rank over NCCL
     ddp_launches, nccl_launches = ddp_paths(cfg, batches, device)
 
-    # phase 8e: the learning check: the flagship overfits one planted scene
-    # and finds its objects (JAX's bar)
-    overfit_launches = overfit_flagship(device)
-
-    # phase 8f: full-scale parity: the port's f32 detections against its
+    # phases 8e-8f, with voxel18's and MVF's trained parity in processes of
+    # their own beside them (their overfits are host-bound): the learning
+    # check, the flagship overfits one planted scene and finds its objects
+    # (JAX's bar); full-scale parity, the port's f32 detections against its
     # copy of the reference mirror (f32 on the card), random and trained
     # weights, the flagship, voxel18 and MVF at their configs' grids
-    parity_launches = parity_paths(device)
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        processes = start_parity_processes(Path(tmp))
+        try:
+            overfit_launches = overfit_flagship(device)
+            parity_launches = parity_paths(device, processes)
+        finally:
+            for proc, _, _ in processes.values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+
+    # phase 8g: the measurement tools at full width: the eval and train
+    # breakdowns by stage, the reference mirror against the port, and the
+    # host loader against the train path's step
+    tool_launches = tool_paths(device, RECORDS["train"]["step_ms_median_after_first"])
 
     # phase 9: each kernel vs its plain version at the main paths' shapes (after
     # the main paths, so that torch.profiler has not traced the process they run in)
@@ -2688,7 +2907,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # phase 10: where a serving frame's time goes on the device, for every
-    # serving path at the reader's largest bucket (profiled last, as above)
+    # serving path at the reader's largest bucket (profiled last, as above;
+    # the stage-mode and option paths trace the card alone)
     profiled = [("serving", model, (points, mask)), ("serving_voxel18", vmodel, (vpoints, vmask))]
     profiled += [(path, serving_model(w["cfg"]["model"], device), frame(w["cfg"]["model"]["reader"]["pc_range"], 0, device))
                  for path, w in waymo.items()]
@@ -2705,9 +2925,10 @@ def main() -> None:
                 x = mdl.reader(p, m)
                 return x if mdl.backbone is None else mdl.backbone(x, **tiles)
 
+            ops = path not in modes and path not in options
             emit({"phase": "frame_profile", "path": path,
-                  "predict": profile_device(lambda: mdl.predict(p, m, **tiles), FRAME_PROFILE_CALLS),
-                  "reader_and_backbone": profile_device(reader_and_backbone, FRAME_PROFILE_CALLS)})
+                  "predict": profile_device(lambda: mdl.predict(p, m, **tiles), FRAME_PROFILE_CALLS, ops),
+                  "reader_and_backbone": profile_device(reader_and_backbone, FRAME_PROFILE_CALLS, ops)})
     del profiled, vmodel, vpoints, vmask
 
     summary_keys = ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -2729,6 +2950,7 @@ def main() -> None:
              "train": train_launches, "train_voxel18": vtrain_launches, **wtrain,
              "cli_train": cli_train_launches, "cli_test": cli_test_launches,
              "reference_checkpoint": ref_launches, "overfit_flagship": overfit_launches, **parity_launches,
+             **tool_launches, "dist_train_waymo": launcher_launches,
              "cli_train_ddp": cli_ddp_launches, "cli_waymo": cli_waymo_launches,
              "cli_waymo_test": cli_waymo_test_launches, "ddp_train": ddp_launches, "ddp_nccl": nccl_launches,
              **{path: w["launches"] for path, w in modes.items()}, **train_mode_launches,
@@ -2761,6 +2983,7 @@ def main() -> None:
     )
     if foreign:
         raise AssertionError(f"the port imported JAX or the JAX package: {foreign[:5]}")
+    emit({"phase_seconds": PHASE_SECONDS, "script_seconds": time.perf_counter() - STARTED})
     print(smi, flush=True)
     emit({"kernels": kernels_line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2772,5 +2995,7 @@ if __name__ == "__main__":
         ddp_worker(sys.argv[2])
     elif sys.argv[1:2] == ["cli-ddp-worker"]:
         cli_ddp_worker(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:2] == ["parity-worker"]:
+        parity_worker(sys.argv[2], sys.argv[3])
     else:
         main()

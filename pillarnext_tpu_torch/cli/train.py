@@ -81,7 +81,8 @@ def main(argv=None) -> Trainer:
     p.add_argument("--load-from", default=None)
     p.add_argument("--profile", default=None, metavar="LOGDIR",
                    help="write a torch.profiler trace of a few steady-state train steps")
-    args = p.parse_args(argv)
+    # overrides may come before and after the options (a launcher's own overrides, then its caller's)
+    args = p.parse_intermixed_args(argv)
     device = parallel.init_from_env(args.dist_backend, args.device)
     log = setup_logging(parallel.rank())
     cfg = load_experiment(args.config, args.overrides)

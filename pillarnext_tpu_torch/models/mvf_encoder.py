@@ -84,9 +84,10 @@ class PointNet(nn.Module):
 def _decorate(pos3, tail, u, v, valid, slot, num_segments: int, grid: VoxelGrid, plain: bool):
     """[pos3, tail, pos3 - cell mean, pos3[:, :2] - cell centre] over points
     sorted by ``slot`` (ascending) (mvf_encoder.py:58-74).  The mean's dump
-    row is 0 (masked points), and the gather back reads it as zeros."""
+    row is 0 (masked points) unless valid points overflowed the table, and
+    the gather back reads it as it stands, as JAX's does."""
     mean = scatter.segment_mean(torch.where(valid[:, None], pos3, 0.0), slot, num_segments)
-    f_cluster = pos3 - scatter.gather_segments(mean, slot, zero_dump_row=True, plain=plain)
+    f_cluster = pos3 - scatter.gather_segments(mean, slot, plain=plain)
     (su, sv), (ou, ov) = grid.voxel_size[:2], grid.pc_range[:2]
     center = torch.stack([u.float() * su + su / 2 + ou, v.float() * sv + sv / 2 + ov], dim=-1)
     return torch.cat([pos3, tail, f_cluster, pos3[:, :2] - center], dim=-1)

@@ -62,10 +62,11 @@ class PFNLayer(nn.Module):
             return scatter.segment_max(x, slot, cap + 1)
         if self.training:
             return torch.cat([x, pillar_max_broadcast(x, slot, plain=plain)], dim=-1)
-        # the dump row is the max over masked (zero) points: 0 unless the
-        # table overflowed, and an overflowed frame is recomputed
+        # the dump row is the max over masked (zero) points, 0, unless the
+        # table overflowed: the overflowed points then get its max back, as
+        # in JAX (an overflowed frame is recomputed)
         table = scatter.segment_max(x, slot, cap + 1)
-        return torch.cat([x, scatter.gather_segments(table, slot, zero_dump_row=True, plain=plain)], dim=-1)
+        return torch.cat([x, scatter.gather_segments(table, slot, plain=plain)], dim=-1)
 
 
 class PillarFeatureNet(nn.Module):
@@ -148,8 +149,9 @@ class PillarFeatureNet(nn.Module):
         xyz_s = raw[:, :3]
         valid_s = flat_valid[order][:, None]
         mean_xyz = scatter.segment_mean(torch.where(valid_s, xyz_s, 0.0), slot, cap + 1)
-        # the dump row of mean_xyz is 0 / max(count, 1) = 0 exactly
-        f_cluster = xyz_s - scatter.gather_segments(mean_xyz, slot, zero_dump_row=True, plain=plain)
+        # the dump row of mean_xyz is 0 unless valid points overflowed the
+        # table: they are then offset from their mean, as JAX's take gives
+        f_cluster = xyz_s - scatter.gather_segments(mean_xyz, slot, plain=plain)
         (vx, vy), (ox, oy) = grid.voxel_size[:2], grid.pc_range[:2]
         f_center = torch.stack([
             xyz_s[:, 0] - (px[order].float() * vx + vx / 2 + ox),

@@ -103,26 +103,24 @@ def segment_max(data: torch.Tensor, seg: torch.Tensor, num_segments: int) -> tor
 
 class _GatherSegments(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, seg, zero_dump_row, plain):
+    def forward(ctx, table, seg, plain):
         ctx.save_for_backward(seg)
         ctx.num_segments = table.shape[0]
-        if zero_dump_row and not plain:
-            return monotone_row_gather(table[:-1], seg.int())
-        return table.index_select(0, seg.long())
+        if plain:
+            return table.index_select(0, seg.long())
+        return monotone_row_gather(table, seg.int())
 
     @staticmethod
     def backward(ctx, g):
         (seg,) = ctx.saved_tensors
-        return segment_sum(g, seg, ctx.num_segments), None, None, None
+        return segment_sum(g, seg, ctx.num_segments), None, None
 
 
-def gather_segments(
-    table: torch.Tensor, seg: torch.Tensor, zero_dump_row: bool = False, plain: bool = False
-) -> torch.Tensor:
-    """``table[seg]`` for an ascending ``seg``, with a segment-sum backward
-    (``segment_sum``).  ``zero_dump_row``: the
-    caller asserts the last row is exactly zero, so the row gather (kernel 2
-    on a CUDA tensor) may read the table without it and return zeros for
-    the dump id — bit-identical.  ``plain`` keeps CUDA tensors on
-    ``index_select`` (for comparisons)."""
-    return _GatherSegments.apply(table, seg, zero_dump_row, plain)
+def gather_segments(table: torch.Tensor, seg: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """``table[seg]`` for an ascending ``seg`` (every id a row of
+    ``table``), with a segment-sum backward (``segment_sum``): the row
+    gather, kernel 2 on a CUDA tensor.  The dump row is read as it stands,
+    as JAX's ``jnp.take`` reads it: zero unless valid points overflowed
+    the table, and then their mean or max, which they get back.
+    ``plain`` keeps CUDA tensors on ``index_select`` (for comparisons)."""
+    return _GatherSegments.apply(table, seg, plain)

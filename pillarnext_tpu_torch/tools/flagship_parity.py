@@ -71,6 +71,25 @@ def build_mirror(model_cfg: dict) -> tm.TModel:
     ).eval()
 
 
+def random_pair(mcfg: dict, seed: int, device) -> tuple:
+    """(the port's model of ``mcfg`` on ``device``, the mirror on the CPU):
+    the mirror's seeded init with randomised BN statistics, carried into
+    the port through ``state_dict_from_reference``."""
+    torch.manual_seed(seed)
+    tmodel = build_mirror(mcfg)
+    tm.randomize_bn_stats(tmodel, np.random.default_rng(seed + 1))
+    model = build_model(mcfg, device=device)
+    model.load_state_dict(state_dict_from_reference(tmodel.state_dict(), model), strict=True)
+    return model, tmodel
+
+
+def random_frame(mcfg: dict, points: int, seed: int, device) -> tuple:
+    """The random-weight frame: (1, N, 5) ``lidar_like_points`` and mask
+    tensors on ``device``."""
+    pts, mask = lidar_like_points(1, points, mcfg["reader"]["pc_range"], seed=seed + 2)
+    return torch.from_numpy(pts).to(device), torch.from_numpy(mask).to(device)
+
+
 def mirror_inputs(points, mask, device) -> torch.Tensor:
     """The mirror's ragged (N, 1 + D) input of padded (B, N, D) tensors."""
     return tm.padded_to_ragged(points.cpu().numpy(), mask.cpu().numpy(), device)
@@ -88,13 +107,8 @@ def run(points: int = 200_000, seed: int = 0, overfit: int = 0, heads: bool = Fa
                                   trained=trained, mirror_inputs=mirror_inputs, log=log)
     device = torch.device(device)
     mcfg = load_experiment(CONFIG, [*overrides, *EVAL])["model"]
-    torch.manual_seed(seed)
-    tmodel = build_mirror(mcfg)
-    tm.randomize_bn_stats(tmodel, np.random.default_rng(seed + 1))
-    model = build_model(mcfg, device=device)
-    model.load_state_dict(state_dict_from_reference(tmodel.state_dict(), model), strict=True)
-    pts, mask = lidar_like_points(1, points, mcfg["reader"]["pc_range"], seed=seed + 2)
-    pts, mask = torch.from_numpy(pts).to(device), torch.from_numpy(mask).to(device)
+    model, tmodel = random_pair(mcfg, seed, device)
+    pts, mask = random_frame(mcfg, points, seed, device)
     rec = {"config": CONFIG.name, "mode": "random", "points": int(mask.sum())}
     rec.update(parity.hold("FLAGSHIP", mcfg, model, tmodel, pts, mask, mirror_inputs, trained=False,
                            heads=heads, device=device, log=log))

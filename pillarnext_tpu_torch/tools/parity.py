@@ -25,6 +25,7 @@ import torch
 from pillarnext_tpu_torch.models.detector import full_f32
 from pillarnext_tpu_torch.serving import AdaptivePredictor
 from pillarnext_tpu_torch.tools import reference_mirror as tm
+from pillarnext_tpu_torch.utils.profiling import synchronize
 
 # the random-weight bar (tools/flagship_parity.py:375)
 RANDOM_MIN_MATCHED, RANDOM_BOX_TOL, RANDOM_SCORE_TOL = 0.85, 0.5, 2e-3
@@ -34,11 +35,6 @@ FLAGSHIP_TOLS = (1e-2, 1e-3)
 FAMILY_3D_TOLS = (5e-2, 5e-3)
 # what a bucketed or repaired predict may differ from the unbucketed one by
 SERVED_BOX_TOL, SERVED_SCORE_TOL = 1e-3, 1e-4
-
-
-def synchronize(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def compare_detections(ref, ours, test_cfg, *, overfit, family="FLAGSHIP", box_tol=1e-2, score_tol=1e-3,

@@ -13,6 +13,7 @@ from types import SimpleNamespace
 
 import pytest
 import torch
+from pillarnext_tpu_torch.utils import profiling
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -23,12 +24,12 @@ def _window(calls, lose=()):
     """Device records of a window: a marker, then each call's (name, us)
     records and a marker, in start order but listed shuffled; ``lose``
     holds the indices of records to drop."""
-    names = [chip_smoke.MARKER]
+    names = [profiling.MARKER]
     for call in calls:
-        names += [*call, chip_smoke.MARKER]
+        names += [*call, profiling.MARKER]
     records = []
     for t, rec in enumerate(names):
-        name, us = (rec, 1.0) if rec == chip_smoke.MARKER else rec
+        name, us = (rec, 1.0) if rec == profiling.MARKER else rec
         records.append(SimpleNamespace(device_type=torch.autograd.DeviceType.CUDA, name=name,
                                        device_time=us, time_range=SimpleNamespace(start=float(t))))
     kept = [r for i, r in enumerate(records) if i not in set(lose)]
@@ -93,11 +94,59 @@ def test_device_profile_counts_only_whole_calls(profiler):
     assert prof["device_ms_by_kernel"] == {"tile": pytest.approx(0.054), "fill": pytest.approx(0.01)}
 
 
+def test_profile_device_without_ops_traces_the_card_alone(profiler, monkeypatch):
+    """A path profile without ``ops`` asks torch.profiler for the card's
+    activity alone and reports no top ops; its busy time, launches and
+    top kernels come from the device records as with them."""
+    import torch.profiler
+
+    opened = profiler([_window([[("tile", 50.0), ("fill", 10.0)]] * 2)])
+    kinds = []
+    real = torch.profiler.profile
+    monkeypatch.setattr(torch.profiler, "profile", lambda *a, **k: kinds.append(k["activities"]) or real(*a, **k))
+    prof = chip_smoke.profile_device(lambda: None, 2, ops=False)
+    assert len(opened) == 1 and kinds == [[torch.profiler.ProfilerActivity.CUDA]]
+    assert prof["top_ops_ms_per_step"] is None and prof["launches_per_step"] == 3.5  # 4 kernels, 3 markers
+    assert prof["device_busy_ms_per_step"] == pytest.approx((2 * 60.0 + 3.0) / 1e3 / 2)
+
+
 def test_device_profile_fails_without_device_records(profiler):
     opened = profiler([[]])
     with pytest.raises(AssertionError, match="no whole call"):
         chip_smoke.device_profile(lambda: None, 3)
-    assert len(opened) == chip_smoke.PROFILE_WINDOWS
+    assert len(opened) == profiling.PROFILE_WINDOWS
+
+
+def test_tools_device_ms_is_device_profile_on_the_card_only(profiler):
+    """The measurement tools' ``profiling.device_ms`` is the guarded
+    ``device_profile`` (a lost record drops its call) on a CUDA device, and
+    None, with nothing profiled, on the CPU."""
+    opened = profiler([_window([[("tile", 50.0), ("fill", 10.0)], [("tile", 50.0)], [("tile", 70.0), ("fill", 10.0)]])])
+    assert profiling.device_ms(lambda: None, "cpu", 3) is None and opened == []
+    assert profiling.device_ms(lambda: None, "cuda:0", 3) == pytest.approx(0.07)
+    assert len(opened) == 1
+
+
+def test_child_probe_reports_the_rank_and_runs_the_shadowed_sitecustomize(tmp_path):
+    """A process started with RANK and ``child_probe`` first on its path
+    writes its ``rank_record`` at its exit, and the interpreter's own
+    ``sitecustomize`` (here a stand-in later on the path; the H100
+    machine's Python has one) still runs."""
+    import json
+    import os
+    import subprocess
+
+    interp = tmp_path / "interp"
+    interp.mkdir()
+    (interp / "sitecustomize.py").write_text(f"open({str(tmp_path / 'ran')!r}, 'w').close()\n")
+    out = tmp_path / "ranks"
+    out.mkdir()
+    env = dict(os.environ, RANK="3", PYTHONPATH=os.pathsep.join([str(chip_smoke.child_probe(out)), str(interp)]))
+    subprocess.run([sys.executable, "-c", "pass"], env=env, check=True, timeout=120)
+    rec = json.loads((out / "rank3.json").read_text())
+    assert (tmp_path / "ran").exists()
+    assert rec["rank"] == 3 and rec["foreign_modules"] == []
+    assert rec["launches"] == {k.__name__: 0 for k in chip_smoke.kernel_counters()}
 
 
 def test_matched_fraction_of_one_prediction_at_50_m_is_one():
@@ -311,3 +360,140 @@ def test_parity_phases_print_their_fields_and_fail_on_a_miss(capsys):
     with pytest.raises(AssertionError, match="never launched"):
         chip_smoke.parity_phase("parity_flagship", lambda log: rec, chip_smoke.KERNELS)
     assert '"phase": "parity_flagship"' in capsys.readouterr().out
+
+
+def test_parity_processes_write_their_lines_and_fail_on_a_miss(tmp_path, monkeypatch, capsys):
+    """voxel18's and MVF's trained parity run in processes of their own:
+    each is a ``parity-worker`` of this script; a worker writes its
+    ``parity_record`` and its process's seconds; the script prints each
+    awaited line, and fails when a process failed or a kernel of its phase
+    never launched."""
+    import json
+    import subprocess
+
+    assert chip_smoke.PARITY_PROCESSES == ("parity_voxel18_trained", "parity_mvf_trained")
+    assert set(chip_smoke.PARITY_PROCESSES) <= set(chip_smoke.PARITY_PHASES)
+    started = []
+    monkeypatch.setattr(subprocess, "Popen", lambda cmd, **kw: started.append(cmd) or cmd)
+    procs = chip_smoke.start_parity_processes(tmp_path)
+    assert [cmd[2:4] for cmd in started] == [["parity-worker", p] for p in chip_smoke.PARITY_PROCESSES]
+    assert started[0][1].endswith("chip_smoke.py") and started[0][4] == str(procs["parity_voxel18_trained"][1])
+    monkeypatch.undo()
+
+    phase = "parity_mvf_trained"
+    rec = {"ref": 3, "ours": 3, "matched": 1.0, "detections": [[1], [1]], "overfit_seconds": 2.0}
+    monkeypatch.setattr(chip_smoke, "PARITY_PHASES", (phase,))
+    monkeypatch.setattr(torch.cuda, "set_device", lambda *a: None)
+    for launched in (1, 0):
+        def run(log, launched=launched):
+            chip_smoke.kernel_counters()[1].launches += launched
+            chip_smoke.kernel_counters()[2].launches += launched
+            return rec
+
+        monkeypatch.setattr(chip_smoke, "parity_run", lambda p, device, run=run: (run, chip_smoke.KERNELS[1:]))
+        out = tmp_path / f"{launched}.json"
+        chip_smoke.parity_worker(phase, str(out))
+        line = json.loads(out.read_text())
+        assert line["phase"] == phase and line["detections"] == [3, 3] and line["process_seconds"] > 0
+        done = subprocess.Popen([sys.executable, "-c", "pass"])
+        if launched:
+            assert chip_smoke.parity_paths("cpu", {phase: (done, out, tmp_path / "log")})[phase] == line["launches"]
+            assert json.loads(capsys.readouterr().out.splitlines()[-1])["process_seconds"] == line["process_seconds"]
+        else:
+            with pytest.raises(AssertionError, match="never launched"):
+                chip_smoke.parity_paths("cpu", {phase: (done, out, tmp_path / "log")})
+    failed = subprocess.Popen([sys.executable, "-c", "raise SystemExit(3)"])
+    with pytest.raises(AssertionError, match="failed, exit codes \\[3\\]"):
+        chip_smoke.parity_paths("cpu", {phase: (failed, out, tmp_path / "log")})
+
+
+def test_phase_records_carry_their_seconds(capsys, monkeypatch):
+    """Every phase line carries its own seconds (since the phase line
+    before it); the ``phase_seconds`` figures sum a phase's lines."""
+    import json
+
+    monkeypatch.setattr(chip_smoke, "PHASE_SECONDS", {})
+    monkeypatch.setattr(chip_smoke, "RECORDS", {})
+    for record in ({"phase": "main_path", "path": "serving"}, {"phase": "kernel_vs_plain"},
+                   {"phase": "kernel_vs_plain"}, {"phase": "frame_profile", "path": "serving"}, {"kernels": []}):
+        chip_smoke.emit(record)
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert all(line["seconds"] >= 0 and line["script_seconds"] >= line["seconds"] for line in lines[:4])
+    assert "seconds" not in lines[4]
+    assert set(chip_smoke.PHASE_SECONDS) == {"serving", "kernel_vs_plain", "frame_profile/serving"}
+    assert chip_smoke.PHASE_SECONDS["kernel_vs_plain"] == pytest.approx(lines[1]["seconds"] + lines[2]["seconds"])
+    assert chip_smoke.RECORDS["serving"] == lines[0]
+
+
+@pytest.fixture
+def narrowed_tools(monkeypatch):
+    """The measurement tools' phases on the CPU at a small grid: each
+    tool's config narrowed as tests/test_torch_port_e2e.py narrows the
+    flagship (the probe's head keeps the mirror's 64 channels), 3,000
+    points, one rep, step and run, a tree of 8 samples at no workers, and
+    no kernel required (the CPU launches none)."""
+    from pillarnext_tpu_torch.tools import baseline_probe, eval_breakdown, train_breakdown
+    from tests.test_torch_port_e2e import OVERRIDES
+
+    probe = [o for o in OVERRIDES if "share_conv_channel" not in o]
+    for module, extra in ((eval_breakdown, OVERRIDES), (train_breakdown, OVERRIDES), (baseline_probe, probe)):
+        monkeypatch.setattr(module, "load_experiment",
+                            lambda path, overrides=(), real=module.load_experiment, extra=extra:
+                            real(path, [*extra, *overrides]))
+    for name, value in (("N_POINTS", 3000), ("BREAKDOWN_REPS", 1), ("BREAKDOWN_STEPS", 1), ("PROBE_RUNS", 1),
+                        ("LOADER_TRIPS", 1), ("LOADER_WORKERS", (0,)), ("KERNELS", ())):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_tool_phases_print_their_records(narrowed_tools, capsys):
+    """``tool_paths``: the four measurement phases, each a main-path line
+    with the tool's record, its seconds and its launches."""
+    import json
+
+    launches = chip_smoke.tool_paths(torch.device("cpu"), 400.0)
+    lines = {line["path"]: line for line in map(json.loads, capsys.readouterr().out.splitlines())
+             if line.get("phase") == "main_path"}
+    assert set(lines) == {"eval_breakdown", "train_breakdown", "baseline_probe", "loader_bench"}
+    assert set(launches) == {"eval_breakdown", "train_breakdown", "baseline_probe"}
+    assert all(line["seconds"] > 0 and set(line["launches"]) == {k.__name__ for k in chip_smoke.kernel_counters()}
+               for line in lines.values())
+    assert [r["name"] for r in lines["eval_breakdown"]["rows"]][-1] == "+neck" and lines["eval_breakdown"]["masked"]
+    assert len(lines["train_breakdown"]["rows"]) == 7 and lines["train_breakdown"]["batch"] == 4
+    assert lines["baseline_probe"]["check"]["ref"] == lines["baseline_probe"]["check"]["ours"]
+    assert lines["loader_bench"]["step_frames_per_s"] == pytest.approx(10.0)
+
+
+def test_tool_phase_fails_without_its_launches(capsys):
+    with pytest.raises(AssertionError, match="eval_breakdown never launched"):
+        chip_smoke.counted_phase("eval_breakdown", lambda log: {"rows": []}, chip_smoke.KERNELS,
+                                 chip_smoke.tool_record)
+    assert '"path": "eval_breakdown"' in capsys.readouterr().out
+
+
+def test_dist_train_waymo_phase_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """The launcher phase on one gloo rank on the CPU (the CLI's device
+    and backend given after the launcher's overrides) on the small Waymo
+    tree: 8 frames at 3 a step train 2 steps, the export holds the 8 val
+    frames, the rank loads no JAX; a rank that launched no kernel fails
+    it."""
+    import json
+    import shutil
+
+    from tests.test_torch_port_tools import waymo_tree
+
+    overrides, val_tokens = waymo_tree(tmp_path / "waymo", monkeypatch)
+    overrides = ["--device", "cpu", "--dist-backend", "gloo", *overrides]
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(chip_smoke, "KERNELS", ())
+    chip_smoke.dist_train_waymo(tmp_path, overrides, val_tokens)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["path"] == "dist_train_waymo" and line["checkpoint_meta"] == {"epoch": 1, "step": 2}
+    assert line["exported_frames"] == 8 and line["foreign_modules"] == [] and line["seconds"] > 0
+    # the same run's files, read back as a rank that launched no kernel
+    monkeypatch.undo()
+    rank = {**json.loads((tmp_path / "launcher/rank0.json").read_text()),
+            "launches": {k: 0 for k in chip_smoke.KERNELS}}
+    shutil.rmtree(tmp_path / "launcher")
+    monkeypatch.setattr(chip_smoke, "run_launcher", lambda *a, **k: [rank])
+    with pytest.raises(AssertionError, match="never launched"):
+        chip_smoke.dist_train_waymo(tmp_path, overrides, val_tokens)

@@ -84,9 +84,14 @@ def test_densify_matches_jax(dtype):
 
 
 def test_gather_segments_zero_dump_row():
+    """Every id reads its row of the table, the dump row too, zero or not
+    (JAX's ``jnp.take``: an overflowed table's dump row holds the
+    overflowed points' value, and they read it back)."""
     rng = np.random.default_rng(9)
-    table = np.concatenate([rng.standard_normal((40, 3)), np.zeros((1, 3))]).astype(np.float32)
-    seg = np.sort(rng.integers(0, 41, 300)).astype(np.int32)
-    t, s = torch.from_numpy(table), torch.from_numpy(seg)
-    np.testing.assert_array_equal(gather_segments(t, s, zero_dump_row=True).numpy(), table[seg])
-    np.testing.assert_array_equal(gather_segments(t, s).numpy(), table[seg])
+    for dump in (np.zeros((1, 3)), rng.standard_normal((1, 3))):
+        table = np.concatenate([rng.standard_normal((40, 3)), dump]).astype(np.float32)
+        seg = np.sort(rng.integers(0, 41, 300)).astype(np.int32)
+        assert (seg == 40).any()
+        t, s = torch.from_numpy(table), torch.from_numpy(seg)
+        np.testing.assert_array_equal(gather_segments(t, s).numpy(), table[seg])
+        np.testing.assert_array_equal(gather_segments(t, s, plain=True).numpy(), table[seg])

@@ -722,3 +722,67 @@ def test_parity_tool_imports_no_jax(tool):
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert (result["mode"], result["heads"]) == (("random", False) if tool == "flagship_parity" else ("trained", True))
     assert result["loaded"] == []
+
+
+MEASUREMENT_TOOL_SCRIPT = r"""
+import contextlib, io, json, sys, tempfile
+from pillarnext_tpu_torch.tools import baseline_probe, eval_breakdown, loader_bench, train_breakdown
+
+narrow, probe = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+small = ["--device", "cpu", "--points", "2000"]
+results = {}
+with contextlib.redirect_stdout(io.StringIO()):
+    results["eval_breakdown"] = len(eval_breakdown.main([*small, "--reps", "1", *narrow])["rows"])
+    results["train_breakdown"] = len(train_breakdown.main([*small, "--batch", "1", "--steps", "1", *narrow])["rows"])
+    results["baseline_probe"] = baseline_probe.main([*small, "--runs", "1", *probe])["check"]["same_label"]
+    with tempfile.TemporaryDirectory() as root:
+        rec = loader_bench.run(workers=[0], max_points=8000, root=root, pts_per_sweep=500, trips=1,
+                               log=lambda s: None)
+    results["loader_bench"] = rec["rates"][0]["batches"]
+
+def foreign(name):
+    top = name.split(".")[0]
+    return top.startswith(("jax", "flax")) or top == "pillarnext_tpu"
+
+print(json.dumps({"results": results, "loaded": sorted(m for m in sys.modules if foreign(m))}))
+"""
+
+
+@pytest.fixture(scope="module")
+def measurement_run():
+    """One fresh interpreter that imports only the port and runs each
+    measurement tool on the CPU at a small grid (the CLIs of
+    ``eval_breakdown``, ``train_breakdown`` and ``baseline_probe``,
+    ``loader_bench.run`` at no worker, one trip: a tree of 12 samples)."""
+    from tests.test_torch_port_e2e import OVERRIDES
+
+    probe = [o for o in OVERRIDES if "share_conv_channel" not in o]
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", MEASUREMENT_TOOL_SCRIPT, json.dumps(OVERRIDES), json.dumps(probe)],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("tool", ["eval_breakdown", "train_breakdown", "baseline_probe", "loader_bench"])
+def test_measurement_tool_imports_no_jax(tool, measurement_run):
+    """Each measurement tool runs to its record and loads no JAX or JAX
+    package."""
+    assert measurement_run["loaded"] == []
+    want = {"eval_breakdown": 8, "train_breakdown": 7, "loader_bench": 2}
+    result = measurement_run["results"][tool]
+    assert result >= 0.85 if tool == "baseline_probe" else result == want[tool]
+
+
+def test_dist_train_waymo_launcher_imports_no_jax(tmp_path):
+    """The multi-host launcher's rank (torchrun, one node, one process)
+    loads the training CLI, asked for its help, and no JAX or JAX
+    package."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    rank, = chip_smoke.run_launcher(tmp_path, ["--help"], timeout_s=120)
+    assert "pillarnext_tpu_torch/cli/train.py" in rank["argv"][0] and rank["argv"][-1] == "--help"
+    assert rank["foreign_modules"] == []
