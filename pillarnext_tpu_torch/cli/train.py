@@ -80,7 +80,10 @@ def main(argv=None) -> Trainer:
     p.add_argument("--resume-from", default=None)
     p.add_argument("--load-from", default=None)
     p.add_argument("--profile", default=None, metavar="LOGDIR",
-                   help="write a torch.profiler trace of a few steady-state train steps")
+                   help="write a torch.profiler trace of a few steady-state train steps; it holds "
+                        "the port's spans (utils/profiling.py): train.step with its forward, "
+                        "backward, allreduce and optimizer phases, train.loader_wait, and "
+                        "model.reader, .backbone, .neck and .head")
     # overrides may come before and after the options (a launcher's own overrides, then its caller's)
     args = p.parse_intermixed_args(argv)
     device = parallel.init_from_env(args.dist_backend, args.device)

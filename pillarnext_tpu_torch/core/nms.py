@@ -12,6 +12,11 @@ per fixpoint round.  A batch of lanes runs until every lane has finished;
 a finished lane's state no longer changes (its chunks hold no valid
 candidates, and a reached fixpoint is stable), so each lane gets exactly
 its own greedy result.
+
+Spans (utils/profiling.annotate): ``nms`` around one streaming NMS over a
+group's lanes (``_chunked_greedy``), ``nms.sync`` around each host read
+in it, the chunk's ``active.any()`` and each fixpoint round's
+``torch.equal``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from pillarnext_tpu_torch.core import torch_box_ops
+from pillarnext_tpu_torch.utils import profiling
 
 NEG_INF = -1e9
 _CHUNK = 128
@@ -35,7 +41,9 @@ def _greedy_suppress(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     for _ in range(c):
         suppressed = (keep.float()[:, None, :] @ overf)[:, 0] > 0.0
         new_keep = valid & ~suppressed
-        if torch.equal(new_keep, keep):  # host sync
+        with profiling.annotate("nms.sync"):
+            same = torch.equal(new_keep, keep)
+        if same:
             break
         keep = new_keep
     return keep
@@ -45,6 +53,11 @@ def _chunked_greedy(cand: torch.Tensor, valid: torch.Tensor, overlap_fn, post_ma
     """Streaming greedy NMS: cand (L, K, D) score-sorted rows, valid (L, K)
     (a prefix of each lane), overlap_fn(a (L, M, D), b (L, N, D)) -> (L, M, N)
     bool.  Returns the (L, K) keep mask."""
+    with profiling.annotate("nms"):
+        return _streamed(cand, valid, overlap_fn, post_max)
+
+
+def _streamed(cand, valid, overlap_fn, post_max: int):
     lanes, k, d = cand.shape
     c = min(_CHUNK, k)
     n_chunks = -(-k // c)
@@ -61,7 +74,9 @@ def _chunked_greedy(cand: torch.Tensor, valid: torch.Tensor, overlap_fn, post_ma
     for chunk_i in range(n_chunks):
         start = chunk_i * c
         active = (start < n_valid) & (kept_count < post_max)
-        if not bool(active.any()):  # host sync
+        with profiling.annotate("nms.sync"):
+            finished = not bool(active.any())
+        if finished:
             break
         chunk = cand[:, start:start + c]
         chunk_valid = valid[:, start:start + c] & active[:, None]

@@ -6,6 +6,10 @@ statistics, the all-sparse backbone, dense head branches); ``loss`` is the
 training step's body.  An f32 model runs its forward (and so ``loss``) and
 ``predict`` under ``precision()``: full f32 convolutions and matmuls, not
 TF32, whatever the process-wide flags say.
+
+Spans (utils/profiling.annotate): ``model.reader``, ``model.backbone``
+and ``model.neck`` around each stage's call, ``model.head`` around the
+head's; in ``predict`` ``model.head`` holds the decode and NMS too.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from typing import Any
 
 import torch
 from torch import nn
+
+from pillarnext_tpu_torch.utils import profiling
 
 # JAX's head runs circle NMS for "circle" and rotated NMS for any other
 # name (centerhead.py:731-735), the reference's own "circle_nms" too; the
@@ -64,18 +70,23 @@ class SingleStageDetector(nn.Module):
         2-D backbone's (serving's buckets); ``telemetry`` (a dict) collects
         the device-side counters; ``plain`` keeps CUDA tensors on the
         kernels' plain versions."""
-        x = self.reader(points, mask, capacity=capacity, telemetry=telemetry, plain=plain)
+        with profiling.annotate("model.reader"):
+            x = self.reader(points, mask, capacity=capacity, telemetry=telemetry, plain=plain)
         if self.backbone is not None:
             extra = {} if tile_capacity is None else {"tile_capacity": tile_capacity}
-            x = self.backbone(x, plain=plain, telemetry=telemetry, **extra)
+            with profiling.annotate("model.backbone"):
+                x = self.backbone(x, plain=plain, telemetry=telemetry, **extra)
         if self.neck is not None:
-            x = self.neck(x)
+            with profiling.annotate("model.neck"):
+                x = self.neck(x)
         return x
 
     def forward(self, points, mask, capacity=None, telemetry=None, plain=False):
         """Dense head maps, one dict per task group."""
         with self.precision():
-            return self.head(self.extract_feat(points, mask, capacity, telemetry, plain))
+            x = self.extract_feat(points, mask, capacity, telemetry, plain)
+            with profiling.annotate("model.head"):
+                return self.head(x)
 
     def loss(self, example: dict, telemetry=None, plain=False):
         """Train-mode forward + head loss -> (total loss, per-task log
@@ -94,6 +105,7 @@ class SingleStageDetector(nn.Module):
         cfg = self.post_processing
         with self.precision():
             x = self.extract_feat(points, mask, capacity, telemetry, plain, tile_capacity)
-            if cfg.get("candidate_sparse_head", False):
-                return self.head(x, test_cfg=cfg)
-            return self.head.predict(self.head(x), cfg)
+            with profiling.annotate("model.head"):
+                if cfg.get("candidate_sparse_head", False):
+                    return self.head(x, test_cfg=cfg)
+                return self.head.predict(self.head(x), cfg)

@@ -20,6 +20,16 @@ the card, except the collectives of several ranks.  With a process group
 flat all-reduce after the backward, before the clip: the losses'
 normalisers are global counts (models/losses.py), so the sum is the
 gradient of JAX's global-batch loss.
+
+Spans (utils/profiling.annotate, recorded while a torch.profiler runs):
+``train.step`` around the whole step; inside it ``train.forward``
+(``model.loss``) and ``train.backward`` (``backward()``) for each
+micro-batch, ``train.allreduce`` (the gradient list, its all-reduce and
+the accumulation's divide) and ``train.optimizer`` (global norm, clip,
+AdamW).  Autograd runs a CUDA backward on its own device thread: that
+thread's ``autograd::engine::evaluate_function`` events (a recomputed
+block's replay among them) lie inside ``train.backward`` in time, not as
+its children.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from typing import Callable
 import torch
 
 from pillarnext_tpu_torch import parallel
+from pillarnext_tpu_torch.utils import profiling
 
 
 def cosine_onecycle_schedule(
@@ -164,34 +175,38 @@ def train_step(model, optimizer: AdamW, batch: dict, plain: bool = False, accum_
     Returns ({"loss", "grad_norm", "overflow", "telemetry"} as device
     scalars, per-task log dicts detached); the loss and logs are global
     (summed over ranks), the telemetry this rank's."""
-    model.train()
-    for p in optimizer.params:
-        p.grad = None
-    loss = None
-    logs: list[dict] = []
-    telemetry: dict = {}
-    for micro in (split_batch(batch, accum_steps) if accum_steps > 1 else [batch]):
-        tel: dict = {}
-        mloss, mlogs = model.loss(micro, telemetry=tel, plain=plain)
-        with model.precision():
-            mloss.backward()
-        mlogs = [{k: v.detach() for k, v in log.items()} for log in mlogs]
-        if loss is None:
-            loss, logs, telemetry = mloss.detach(), mlogs, tel
-        else:
-            loss = loss + mloss.detach()
-            logs = [{k: a[k] + b[k] for k in a} for a, b in zip(logs, mlogs)]
-            telemetry = {k: torch.maximum(telemetry[k], v) for k, v in tel.items()}
-    grads = []
-    for p in optimizer.params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-        grads.append(p.grad)
-    summed = grads + [loss] + [v for log in logs for v in log.values()]
-    parallel.all_reduce_(summed)
-    if accum_steps > 1:
-        torch._foreach_div_(summed, float(accum_steps))
-    grad_norm = optimizer.step()
-    scalars = {"loss": loss, "grad_norm": grad_norm,
-               "overflow": overflow_total(telemetry), "telemetry": telemetry}
+    with profiling.annotate("train.step"):
+        model.train()
+        for p in optimizer.params:
+            p.grad = None
+        loss = None
+        logs: list[dict] = []
+        telemetry: dict = {}
+        for micro in (split_batch(batch, accum_steps) if accum_steps > 1 else [batch]):
+            tel: dict = {}
+            with profiling.annotate("train.forward"):
+                mloss, mlogs = model.loss(micro, telemetry=tel, plain=plain)
+            with profiling.annotate("train.backward"), model.precision():
+                mloss.backward()
+            mlogs = [{k: v.detach() for k, v in log.items()} for log in mlogs]
+            if loss is None:
+                loss, logs, telemetry = mloss.detach(), mlogs, tel
+            else:
+                loss = loss + mloss.detach()
+                logs = [{k: a[k] + b[k] for k in a} for a, b in zip(logs, mlogs)]
+                telemetry = {k: torch.maximum(telemetry[k], v) for k, v in tel.items()}
+        with profiling.annotate("train.allreduce"):
+            grads = []
+            for p in optimizer.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+            summed = grads + [loss] + [v for log in logs for v in log.values()]
+            parallel.all_reduce_(summed)
+            if accum_steps > 1:
+                torch._foreach_div_(summed, float(accum_steps))
+        with profiling.annotate("train.optimizer"):
+            grad_norm = optimizer.step()
+        scalars = {"loss": loss, "grad_norm": grad_norm,
+                   "overflow": overflow_total(telemetry), "telemetry": telemetry}
     return scalars, logs

@@ -59,12 +59,14 @@ def batch_to_device(batch: dict, device) -> dict:
 
 def _timed(iterable, waits: list):
     """Yield from ``iterable``, appending to ``waits`` the seconds each
-    item took to arrive (time blocked on the loader)."""
+    item took to arrive (time blocked on the loader), each wait a
+    ``train.loader_wait`` span (``val_epoch``'s too)."""
     it = iter(iterable)
     while True:
         t = time.perf_counter()
         try:
-            item = next(it)
+            with profiling.annotate("train.loader_wait"):
+                item = next(it)
         except StopIteration:
             return
         waits.append(time.perf_counter() - t)
@@ -114,7 +116,8 @@ class Trainer:
         eval_overflow: what an overflowed val batch does: ``"repair"``
             (with ``eval_model_cfg``), ``"raise"``, or ``"warn"`` (once).
         profile_dir: write a torch.profiler trace of train steps 3-5 of
-            the first epoch there (utils/profiling.py); rank 0 only.
+            the first epoch there, the port's spans in it
+            (utils/profiling.py); rank 0 only.
         accum_steps: micro-batches per step (train_state.train_step); each
             batch's leading dim must divide by it.
     """

@@ -6,14 +6,18 @@ Counterpart of pillarnext_tpu/utils/profiling.py:23-62:
   card's kernels when the tensors are on one) over the block and writes
   it to ``logdir`` as a Chrome trace (``trace.json``, for chrome://tracing
   or Perfetto); the training CLI's ``--profile``.
-- ``annotate(name)``: a named range in that trace
-  (``torch.profiler.record_function``).
+- ``annotate(name)``: the program's one span primitive, a named range in
+  that trace (``torch.profiler.record_function``) while a torch.profiler
+  records, and a shared no-op context otherwise (one check of the
+  profiler's flag).  The port opens its spans with it at its layer
+  boundaries: ``train.step``, ``train.forward``, ``train.backward``,
+  ``train.allreduce`` and ``train.optimizer`` (train/train_state.py),
+  ``train.loader_wait`` (train/trainer.py), ``model.reader``,
+  ``model.backbone``, ``model.neck`` and ``model.head``
+  (models/detector.py), ``nms`` and ``nms.sync`` (core/nms.py).
 - ``enable_nan_checks()``: autograd's anomaly mode, which raises where a
   backward first gives a NaN (the runtime analogue of the reference's
   hand-written NaN guards in RegLoss, centerloss.py:56-57).
-- ``StepTimer``: wall-clock step times; ``tick`` fences with
-  ``torch.cuda.synchronize()`` when a card is in use, since kernel
-  launches return before the kernels end.
 
 What the measurement tools (``tools/eval_breakdown.py``,
 ``train_breakdown.py``, ``baseline_probe.py``) and ``chip_smoke.py``
@@ -32,8 +36,8 @@ import subprocess
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 @contextlib.contextmanager
@@ -52,40 +56,21 @@ def trace(logdir):
     prof.export_chrome_trace(str(logdir / "trace.json"))
 
 
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named range: ``with annotate('backbone'): ...`` inside traced code."""
+    """``with annotate("train.step"): ...``: a
+    ``torch.profiler.record_function(name)`` range while a torch.profiler
+    records (nesting gives the parent span), else a shared no-op context
+    that opens nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
     return torch.profiler.record_function(name)
 
 
 def enable_nan_checks(enable: bool = True) -> None:
     torch.autograd.set_detect_anomaly(enable)
-
-
-class StepTimer:
-    """Rolling step timer: call ``tick()`` once a step, after it is
-    issued; ``device`` (a torch device or name) picks the fence, a CUDA
-    device synchronising before the clock is read."""
-
-    def __init__(self, window: int = 50, device=None):
-        self.window = window
-        self.device = None if device is None else torch.device(device)
-        self.times: list[float] = []
-        self._last = None
-
-    def tick(self) -> float:
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        dt = 0.0 if self._last is None else now - self._last
-        self._last = now
-        if dt:
-            self.times.append(dt)
-            self.times = self.times[-self.window:]
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return float(np.mean(self.times)) if self.times else 0.0
 
 
 def synchronize(device) -> None:
