@@ -156,7 +156,9 @@ width, random weights from a seed:
   ``sitecustomize`` on its path (``child_probe``);
 
 then holds each kernel against its plain PyTorch version at the shapes
-those paths give it.  Kernel 3 (``sorted_segment_bcast``) also carries
+those paths give it; the NMS kernel (kernel 4, ``card_greedy_nms``)
+against the chunk loop, the CPU's path, on the NMS inputs of a batch of
+4 served frames (``check_nms``).  Kernel 3 (``sorted_segment_bcast``) also carries
 the segment sums of both readers (ops/scatter.py), so it runs on every
 path.  An f32 model keeps TF32 off by itself (``model.precision()``):
 the script sets no TF32 flag.  Each kernel record carries two times:
@@ -205,7 +207,10 @@ VOXEL18 = REPO / "pillarnext_tpu/configs/experiments/nusc_det_voxel18_aspp_iou_s
 WAYMO_PP18 = REPO / "pillarnext_tpu/configs/experiments/waymo_det_pp18_aspp_iou_car_sp.yaml"
 WAYMO_VOXEL18 = REPO / "pillarnext_tpu/configs/experiments/waymo_det_voxel18_aspp_iou_car.yaml"
 MVF = REPO / "pillarnext_tpu/configs/experiments/waymo_det_mvf18_aspp_iou_car.yaml"
-KERNELS = ("pfn_two_layer", "monotone_row_gather", "sorted_segment_bcast")
+# the kernels' wrappers, as their launch counters are named: a pillar model's
+# predict launches all four, a voxel18 or MVF predict all but the first, a
+# train step the second and third (``KERNELS[1:3]``: no NMS)
+KERNELS = ("pfn_two_layer", "monotone_row_gather", "sorted_segment_bcast", "card_greedy_nms")
 N_POINTS = 200_000
 TIMED_RUNS = 25
 PROFILED_CALLS = 20
@@ -728,6 +733,81 @@ def max_broadcast_record(seg, gen, device):
           "kernel3_share": kernel_ms / prof["device_ms"]})
 
 
+NMS_TIE_MARGIN = 1e-5  # kernel 4 and the chunk loop may differ only where an IoU lies this close to the threshold
+NMS_FLOPS_PER_PAIR = 339  # f32 operations of one IoU over a pair past the distance test (csrc/nms.cu iou_over)
+NMS_TEST_FLOPS = 8  # the distance test's, on every valid pair
+
+
+def check_nms(model, pc_range, device, records):
+    """Kernel 4 (``card_greedy_nms``) against the chunk loop (``_streamed``
+    + ``_select``, the CPU's path) on the card at the eval cells' shape:
+    the NMS inputs of one predict of a batch of 4 frames (40 lanes of up to
+    1,000 candidates), captured from the predict, as they come and with
+    every candidate valid.  The kept rows must be equal lane for lane
+    wherever no valid pair's IoU lies within ``NMS_TIE_MARGIN`` of the
+    lane's threshold, and such lanes must be at least half.  The bound
+    counts the IoUs of the valid pairs past the kernel's distance test at
+    the f32 peak, or the bytes (rows, validity, the mask words of the row
+    tiles that hold a valid row, the outputs), whichever is longer."""
+    from pillarnext_tpu_torch.core import nms, torch_box_ops
+    from pillarnext_tpu_torch.utils.synth import lidar_like_points
+
+    pts, mask = (torch.from_numpy(a).to(device) for a in lidar_like_points(4, N_POINTS, pc_range, seed=0))
+    with torch.inference_mode(), captured(nms, "card_greedy_nms") as calls:
+        model.predict(pts, mask)
+    rows, served_valid, order, thresh, post_max, circle = calls[0]
+    assert not circle, "the flagship's NMS is rotated"
+    lanes, k, _ = rows.shape
+    th3 = thresh.reshape(-1, 1, 1)
+    words = -(-k // 64)
+    out = {}
+    for case, valid in (("eval_batch4", served_valid), ("eval_batch4_all_valid", torch.ones_like(served_valid))):
+        def kernel(valid=valid):
+            return nms.card_greedy_nms(rows, valid, order, thresh, post_max, circle)
+
+        def plain(valid=valid):
+            keep = nms._streamed(rows, valid, lambda a, b: torch_box_ops.boxes_iou_bev(a, b) > th3, post_max)
+            return nms._select(order, keep, post_max)
+
+        with torch.inference_mode():
+            (sel, sel_valid), (want, want_valid) = kernel(), plain()
+            upper = valid[:, :, None] & valid[:, None, :] & torch.ones(k, k, dtype=torch.bool, device=device).triu(1)
+            iou = torch_box_ops.boxes_iou_bev(rows, rows)
+            clear = ~(((iou - th3).abs() < NMS_TIE_MARGIN) & (iou != 0) & upper).flatten(1).any(1)
+            del iou
+            equal = (sel == want).all(1) & (sel_valid == want_valid).all(1)
+            x, y = rows[..., 0], rows[..., 1]
+            rad = 0.5 * torch.sqrt(rows[..., 3] ** 2 + rows[..., 4] ** 2)
+            reach = (rad[:, :, None] + rad[:, None, :]) * 1.001 + 1e-3
+            g2 = (x[:, :, None] - x[:, None, :]) ** 2 + (y[:, :, None] - y[:, None, :]) ** 2
+            near = upper & (~(g2 > reach * reach) | (th3 < 1e-3))
+            pairs, near_pairs = int(upper.sum()), int(near.sum())
+            del upper, g2, reach, near
+            held = torch.nn.functional.pad(valid.to(torch.uint8), (0, words * 64 - k)).reshape(lanes, words, 64)
+            rb = torch.arange(words, device=device)
+            tile_bytes = (words - rb) * torch.clamp(k - rb * 64, max=64) * 8
+            written = int((held.any(-1) * tile_bytes).sum())
+            nbytes = rows.numel() * rows.element_size() + valid.numel() + written + lanes * post_max * 9
+            flops = NMS_FLOPS_PER_PAIR * near_pairs + NMS_TEST_FLOPS * pairs
+            rec = {
+                "phase": "kernel_vs_plain", "kernel": "card_greedy_nms", "case": case, "dtype": str(rows.dtype),
+                "shape": {"lanes": lanes, "candidates": k, "post_max": post_max},
+                "valid_per_lane": float(valid.sum(1).float().mean()), "kept_per_lane": float(sel_valid.sum(1).float().mean()),
+                "pairs": pairs, "near_pairs": near_pairs, "lanes_clear_of_ties": int(clear.sum()),
+                "lanes_equal": int(equal.sum()), "lanes_equal_clear": int((equal & clear).sum()),
+                "max_abs_err": None, "ms": median_ms(kernel), "plain_ms": median_ms(plain, runs=5), "library_ms": None,
+                **bound(nbytes, flops, torch.float32),
+                **device_profile(kernel, launches=2), "device_plain_ms": device_ms(plain, calls=3),
+                "device_library_ms": None,
+            }
+        emit(rec)
+        if not bool(served_valid.any()) or not bool((equal | ~clear).all()) or 2 * int(clear.sum()) < lanes:
+            raise AssertionError(f"card_greedy_nms disagrees with the chunk loop: {rec}")
+        out[case] = rec
+    records["card_greedy_nms"] = out["eval_batch4"]
+    records["nms_cases"] = out
+
+
 def synced_ms(fn):
     """(fn(), its CUDA-synchronised host time in ms)."""
     torch.cuda.synchronize()
@@ -949,7 +1029,7 @@ def serving_model(model_cfg, device):
 
 
 def kernel_counters():
-    """The three kernel wrappers, whose ``launches`` count their launches."""
+    """The four kernel wrappers, whose ``launches`` count their launches."""
     from pillarnext_tpu_torch.utils.profiling import kernel_wrappers
 
     return kernel_wrappers()
@@ -1256,7 +1336,7 @@ def serving_modes(device) -> dict:
     """The flagship as its YAML gives it with one backbone override each
     (``SERVING_MODES``), served bf16 at batch 1 through AdaptivePredictor
     (``serving_path``: frames, buckets, tables and tiles, the median,
-    breakdown, launches), each path failing unless kernels 1-3 launched
+    breakdown, launches), each path failing unless all four kernels launched
     and, on the tile paths, unless the tile gathers launched kernel 2.
     Then, against the default ``leading`` path at the same weights: the
     bf16 detections' matched fraction, and for the modes exact on the
@@ -1322,7 +1402,7 @@ def train_modes(batches, device) -> dict:
         mcfg = load_experiment(FLAGSHIP, [override])
         with (tempfile.TemporaryDirectory(dir=REPO) as work_dir,
               launches_through(tile_subm, "monotone_row_gather", gather.monotone_row_gather) as tile_launches):
-            model, out[path] = train_path(mcfg, batches[:MODE_TRAIN_STEPS], device, work_dir, path, KERNELS[1:],
+            model, out[path] = train_path(mcfg, batches[:MODE_TRAIN_STEPS], device, work_dir, path, KERNELS[1:3],
                                           ops=False)
         emit({"phase": f"{path}_tile_gathers", "override": override, "tile_gather_launches": tile_launches[0]})
         if "tile" in path and tile_launches[0] == 0:
@@ -1528,21 +1608,21 @@ def tool_record(phase: str, rec: dict, launches: dict) -> dict:
 def tool_paths(device, step_ms: float) -> dict:
     """The measurement tools at full width, each a ``counted_phase``:
     ``eval_breakdown`` (the flagship's eight eval prefixes, masked, B = 1,
-    ``BREAKDOWN_REPS`` calls each; kernels 1-3), ``train_breakdown`` (the
+    ``BREAKDOWN_REPS`` calls each, up to the neck; kernels 1-3), ``train_breakdown`` (the
     truncated flagships and the ``remat_save_conv_out=false`` row, B = 4,
     ``BREAKDOWN_STEPS`` steps each; kernels 2 and 3), ``baseline_probe``
     (the reference mirror against the port's f32 predict on the card,
     checked at the random-weight bar first, ``PROBE_RUNS`` runs a side;
-    kernels 1-3) and ``loader_bench`` (host only: ``LOADER_TRIPS``
+    all four kernels) and ``loader_bench`` (host only: ``LOADER_TRIPS``
     trips of each worker at ``LOADER_WORKERS`` workers, against the
     ``step_ms`` of the train path).  Returns the device tools' launches."""
     from pillarnext_tpu_torch.tools import baseline_probe, eval_breakdown, loader_bench, train_breakdown
 
     runs = {
         "eval_breakdown": (lambda log: eval_breakdown.run(1, True, N_POINTS, BREAKDOWN_REPS, device=device, log=log),
-                           KERNELS),
+                           KERNELS[:3]),
         "train_breakdown": (lambda log: train_breakdown.run(4, N_POINTS, BREAKDOWN_STEPS, device=device, log=log),
-                            KERNELS[1:]),
+                            KERNELS[1:3]),
         "baseline_probe": (lambda log: baseline_probe.run(PROBE_RUNS, N_POINTS, device=device, log=log), KERNELS),
     }
     launches = {}
@@ -1919,7 +1999,7 @@ def cli_train_run(common: list, work: Path, overrides: list, counters) -> tuple:
     its steps timed and its ``val_epoch`` recorded (``cli_instruments``):
     (the Trainer, the record's common fields, the failures common to the
     CLI paths: losses not finite, kernels 2 and 3 not launched in training
-    or 1 and 2 not in ``val_epoch``, detections not finite (D, 9) boxes;
+    or 1, 2 and 4 not in ``val_epoch``, detections not finite (D, 9) boxes;
     the scorer's result, the first train and val host batches)."""
     import numpy as np
 
@@ -1953,8 +2033,8 @@ def cli_train_run(common: list, work: Path, overrides: list, counters) -> tuple:
     failures = []
     if len(losses) != 2 or not all(math.isfinite(v) for v in losses):
         failures.append(f"losses {losses}")
-    failures += [f"{name} never launched in training" for name in KERNELS[1:] if not in_training[name]]
-    failures += [f"{name} never launched in val_epoch" for name in KERNELS[:2] if not in_val[name]]
+    failures += [f"{name} never launched in training" for name in KERNELS[1:3] if not in_training[name]]
+    failures += [f"{name} never launched in val_epoch" for name in KERNELS[:2] + KERNELS[3:] if not in_val[name]]
     if not all(np.isfinite(d[k]).all() and d["box3d_lidar"].shape == (len(d["scores"]), 9)
                for d in trained.last_detections.values() for k in ("box3d_lidar", "scores")):
         failures.append("detections not finite or not (D, 9) boxes")
@@ -1992,7 +2072,7 @@ def cli_test_run(path: str, common: list, tmp: Path, overrides: list, counters, 
           "detections": sum(len(d["scores"]) for d in got.values()),
           "detections_bit_identical_to_cli_train": not differing and got.keys() == ref.keys(),
           "differing_tokens": differing, "launches": launches})
-    failures = [f"{name} never launched" for name in KERNELS[:2] if not launches[name]]
+    failures = [f"{name} never launched" for name in KERNELS[:2] + KERNELS[3:] if not launches[name]]
     if differing or got.keys() != ref.keys():
         failures.append(f"detections differ from cli_train's for {differing or 'the token set'}")
     if failures:
@@ -2008,7 +2088,7 @@ def cli_paths(device) -> tuple[dict, dict, dict, dict]:
     over the 8 val samples and the scorer; then ``cli.test`` of the
     checkpoint.  The overrides only point the config at the tree, train one
     epoch without CBGS and set the workers to ``min(16, cores)``.  Fails
-    unless kernels 2 and 3 launched in training, 1 and 2 in ``val_epoch``
+    unless kernels 2 and 3 launched in training, 1, 2 and 4 in ``val_epoch``
     and in ``cli.test``, the scorer wrote one entry per val sample, every
     loss is finite and ``cli.test``'s detections are the bits of
     ``cli.train``'s.  Then ``cli_train_ddp``: torchrun starts
@@ -2165,7 +2245,7 @@ def cli_waymo(device) -> tuple[dict, dict, dict]:
     then ``cli.test`` of the checkpoint.  The overrides only point the
     config at the tree, train one epoch and set the workers to
     ``min(16, cores)``.  Fails unless the CLI's loaded batches hold no NLZ
-    point (``nlz_filtered``), kernels 2 and 3 launched in training, 1 and 2 in
+    point (``nlz_filtered``), kernels 2 and 3 launched in training, 1, 2 and 4 in
     ``val_epoch`` and in ``cli.test``, every loss is finite, the export
     holds one entry per val frame and ``cli.test``'s detections are the
     bits of ``cli.train``'s.  Then the multi-host launcher on the same
@@ -2338,7 +2418,7 @@ def dist_train_waymo(tmp: Path, overrides: list, val_tokens: list) -> dict:
     with the launcher's overrides (3 samples a card, max_lr 0.006, 36
     epochs) and then ``overrides`` (``cli_waymo``'s tree, one epoch, its
     workers), NCCL on cuda:0: one epoch and its ``val_epoch`` with the
-    Waymo export.  Fails unless the rank exits 0, kernels 1-3 launched, the
+    Waymo export.  Fails unless the rank exits 0, all four kernels launched, the
     epoch's checkpoint holds its steps, the export one entry per val frame
     and the rank loaded no JAX.  Returns the launches."""
     import numpy as np
@@ -2556,7 +2636,7 @@ def ddp_paths(cfg, batches, device) -> tuple[dict, dict]:
                    "grad_all_reduce_ms_median_after_first": [
                        statistics.median(c["ms"] for c in r["grad_all_reduces"][-(steps - 1):]) for r in ranks],
                    "grad_all_reduce_bytes": ranks[0]["grad_all_reduces"][-1]["bytes"], "launches": summed}
-            failures = [f"{k} never launched" for k in KERNELS[1:] if not summed[k]]
+            failures = [f"{k} never launched" for k in KERNELS[1:3] if not summed[k]]
             failures += [f"rank {r['rank']} losses {r['losses']}" for r in ranks
                          if not all(math.isfinite(v) for v in r["losses"])]
             if f32:
@@ -2716,7 +2796,7 @@ def main() -> None:
     # (its checkpoint goes to a directory of the checkout that is removed)
     with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
         train_model, train_launches = train_path(cfg, batches, device, work_dir, "train",
-                                                 KERNELS[1:])
+                                                 KERNELS[1:3])
     del train_model
     torch.cuda.empty_cache()
 
@@ -2736,7 +2816,7 @@ def main() -> None:
         with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
             train_model, train_mode_launches[path] = train_path(
                 load_experiment(FLAGSHIP, [override]), batches[:MODE_TRAIN_STEPS], device, work_dir, path,
-                KERNELS[1:], ops=False)
+                KERNELS[1:3], ops=False)
         del train_model
         torch.cuda.empty_cache()
 
@@ -2749,7 +2829,7 @@ def main() -> None:
           "host_seconds": time.perf_counter() - t0})
     with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
         train_model, vtrain_launches = train_path(vcfg, vbatches, device, work_dir, "train_voxel18",
-                                                  KERNELS[1:])
+                                                  KERNELS[1:3])
     del train_model
     torch.cuda.empty_cache()
     f32_train_kernels_vs_plain(vcfg, vbatches[0], device, "voxel18_f32_train_kernels_vs_plain")
@@ -2763,7 +2843,7 @@ def main() -> None:
     dbatches = synthetic_batches(dcfg, VOXEL_DENSE_TRAIN_STEPS, VOXEL_DENSE_TRAIN_BATCH, N_POINTS, seed=0)
     with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
         train_model, dense_train_launches = train_path(dcfg, dbatches, device, work_dir, "train_voxel_dense",
-                                                       KERNELS[1:])
+                                                       KERNELS[1:3])
     del train_model, dbatches
     torch.cuda.empty_cache()
 
@@ -2787,7 +2867,7 @@ def main() -> None:
               "points_per_scene": N_POINTS, "max_points": int(wcfg["dataloader"]["max_points"]),
               "host_seconds": time.perf_counter() - t0})
         with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
-            train_model, wtrain[path] = train_path(wcfg, wbatches, device, work_dir, path, KERNELS[1:])
+            train_model, wtrain[path] = train_path(wcfg, wbatches, device, work_dir, path, KERNELS[1:3])
         del train_model
         torch.cuda.empty_cache()
         if path == "train_mvf":
@@ -2806,7 +2886,7 @@ def main() -> None:
           "host_seconds": time.perf_counter() - t0})
     with tempfile.TemporaryDirectory(dir=REPO) as work_dir:
         train_model, train_mode_launches["train_waymo_voxel18_b8"] = train_path(
-            wcfg, wbatches, device, work_dir, "train_waymo_voxel18_b8", KERNELS[1:])
+            wcfg, wbatches, device, work_dir, "train_waymo_voxel18_b8", KERNELS[1:3])
     del train_model, wbatches
     torch.cuda.empty_cache()
     waymo_gathers, waymo_segs = mvf_train_kernel_inputs(waymo["serving_mvf"]["cfg"], first_batch["train_mvf"],
@@ -2905,6 +2985,8 @@ def main() -> None:
         check_segscan(train_slot, gen, device, records, sum_cases)
         del pts, pmask, train_slot, sum_cases
     torch.cuda.empty_cache()
+    check_nms(model, pc_range, device, records)
+    torch.cuda.empty_cache()
 
     # phase 10: where a serving frame's time goes on the device, for every
     # serving path at the reader's largest bucket (profiled last, as above;
@@ -2976,6 +3058,12 @@ def main() -> None:
              device_launches_per_call=records["sorted_segment_bcast"]["device_launches_per_call"],
              segment_sums={case: summary(rec) for case, rec in records["segment_sums"].items()},
              max_broadcasts={case: summary(rec) for case, rec in records["max_broadcasts"].items()}),
+        line("card_greedy_nms", records["card_greedy_nms"], "cuda", "pillarnext_tpu_torch/csrc/nms.cu",
+             "none (pillarnext_tpu/core/nms.py:41-232 is a while_loop)", by_path["card_greedy_nms"],
+             device_launches_per_call=records["card_greedy_nms"]["device_launches_per_call"],
+             cases={case: {**summary(rec), "lanes_equal_clear": rec["lanes_equal_clear"],
+                           "lanes_clear_of_ties": rec["lanes_clear_of_ties"]}
+                    for case, rec in records["nms_cases"].items()}),
     ]
     foreign = sorted(
         m for m in sys.modules

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "pnx_segscan_fill": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
     # dtype, op, vb, threads (out), smem_bytes (out), registers (out), blocks_per_sm (out)
     "pnx_segscan_launch_shape": (_I, _I, _I, *(ctypes.POINTER(_I),) * 4),
+    # rows, valid, order, order_stride, thresh, mask, sel, sel_valid, lanes, k, d, post_max, circle, stream
+    "pnx_nms": (_P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -129,10 +131,33 @@ def entry(name: str):
 
 def launch(name: str, *args) -> None:
     """Call a kernel's C entry point on the current stream; raise on a
-    launch error.  Pointers are passed as Python ints."""
+    launch error.  Pointers are passed as Python ints.
+
+    Every kernel launches inside the dispatcher op ``pnx::launch``: a
+    trace gives a kernel's device time to the op it was launched in, and
+    a launch through ``ctypes`` alone sits in none, so the time would
+    belong to no host event (nor to any ``profiling.annotate`` span
+    around the call).  A plain ``torch.library.Library``, not
+    ``torch.library.custom_op``, whose first call imports the compiler
+    stack (seconds of set-up); the op costs a few microseconds a call."""
+    _op_library()
+    torch.ops.pnx.launch(name, list(args))
+
+
+def _launch(name: str, args: list) -> None:
     err = entry(name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with error code {err}")
+
+
+@functools.cache
+def _op_library() -> torch.library.Library:
+    """Defines ``pnx::launch`` on first use and keeps the registration
+    alive.  It takes no tensor, so one registration serves every device."""
+    lib = torch.library.Library("pnx", "DEF")
+    lib.define("launch(str name, int[] args) -> ()")
+    lib.impl("launch", _launch, "CompositeExplicitAutograd")
+    return lib
 
 
 def check_cuda_tensor(t: torch.Tensor, name: str, dtypes=None, ndim=None) -> None:

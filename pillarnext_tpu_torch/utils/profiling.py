@@ -14,7 +14,8 @@ Counterpart of pillarnext_tpu/utils/profiling.py:23-62:
   ``train.allreduce`` and ``train.optimizer`` (train/train_state.py),
   ``train.loader_wait`` (train/trainer.py), ``model.reader``,
   ``model.backbone``, ``model.neck`` and ``model.head``
-  (models/detector.py), ``nms`` and ``nms.sync`` (core/nms.py).
+  (models/detector.py), ``nms``, ``nms.kernel`` (the card's NMS kernel)
+  and ``nms.sync`` (the CPU path's host reads; core/nms.py).
 - ``enable_nan_checks()``: autograd's anomaly mode, which raises where a
   backward first gives a NaN (the runtime analogue of the reference's
   hand-written NaN guards in RegLoss, centerloss.py:56-57).
@@ -165,13 +166,15 @@ def device_ms(fn, device, calls: int) -> float | None:
 
 
 def kernel_wrappers() -> tuple:
-    """The three ported kernels' wrappers, whose ``launches`` count their
-    launches (a CPU tensor takes the plain version and counts none)."""
+    """The four kernels' wrappers (the three ported ones and the NMS's),
+    whose ``launches`` count their launches (a CPU tensor takes the plain
+    version and counts none)."""
+    from pillarnext_tpu_torch.core.nms import card_greedy_nms
     from pillarnext_tpu_torch.ops.gather import monotone_row_gather
     from pillarnext_tpu_torch.ops.pfn import pfn_two_layer
     from pillarnext_tpu_torch.ops.segscan import sorted_segment_bcast
 
-    return pfn_two_layer, monotone_row_gather, sorted_segment_bcast
+    return pfn_two_layer, monotone_row_gather, sorted_segment_bcast, card_greedy_nms
 
 
 def launches(fn) -> tuple:

@@ -149,6 +149,14 @@ def test_child_probe_reports_the_rank_and_runs_the_shadowed_sitecustomize(tmp_pa
     assert rec["launches"] == {k.__name__: 0 for k in chip_smoke.kernel_counters()}
 
 
+def test_kernel_names_are_the_wrappers_launch_counters():
+    """The launch tables' keys: each wrapper of ``kernel_wrappers``, kernel
+    1 to 4, by the name ``KERNELS`` gives it; the train paths' slice holds
+    kernels 2 and 3 alone."""
+    assert tuple(k.__name__ for k in chip_smoke.kernel_counters()) == chip_smoke.KERNELS
+    assert chip_smoke.KERNELS[1:3] == ("monotone_row_gather", "sorted_segment_bcast")
+
+
 def test_matched_fraction_of_one_prediction_at_50_m_is_one():
     """830 boxes with centres up to 50 m out, compared with themselves:
     every box matches (cdist's matrix-product form put 9% of them more
@@ -386,8 +394,8 @@ def test_parity_processes_write_their_lines_and_fail_on_a_miss(tmp_path, monkeyp
     monkeypatch.setattr(torch.cuda, "set_device", lambda *a: None)
     for launched in (1, 0):
         def run(log, launched=launched):
-            chip_smoke.kernel_counters()[1].launches += launched
-            chip_smoke.kernel_counters()[2].launches += launched
+            for kernel in chip_smoke.kernel_counters()[1:]:  # a trained parity's steps and predict
+                kernel.launches += launched
             return rec
 
         monkeypatch.setattr(chip_smoke, "parity_run", lambda p, device, run=run: (run, chip_smoke.KERNELS[1:]))

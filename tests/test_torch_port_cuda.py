@@ -32,8 +32,13 @@ bit-identical with the kernels and with their plain versions, and kernel 2
 as its pillar densify at full size (4,194,304 rows of 48 bf16 channels).
 Distributed: a synced BatchNorm over two gloo ranks on the card against
 one process.  The tile-stack SubM's row movements (ops/tile_subm.py) with
-kernel 2 against their plain versions, backwards included.  No test here
-sets a TF32 flag.
+kernel 2 against their plain versions, backwards included.  The rotated
+and circle NMS kernel (csrc/nms.cu) against the host-driven chunk loop on
+the same card over random scenes of 1 to 1000 candidates in 1 to 40 lanes,
+against the native greedy NMS, on a suppression chain across the chunk
+boundaries, on bad input, and under sync debug mode "error".  A trace
+giving kernel 2's and the NMS kernel's device time to their launch op.  No
+test here sets a TF32 flag.
 """
 
 from __future__ import annotations
@@ -1050,3 +1055,248 @@ def test_tile_gathers_on_the_card_match_plain(device, dtype):
         assert int(maps[1].n_tiles) == int(maps[0].n_tiles) > 400
         for field in ("tile_sod", "tile_id", "nbr", "row_of_slot", "halo_rows", "halo_sources", "row_of_dense"):
             assert torch.equal(getattr(maps[1], field).cpu(), getattr(maps[0], field)), field
+
+
+# ---------------------------------------------------------------- rotated / circle NMS (csrc/nms.cu)
+
+def _nms_scene(lanes, n, seed, spread=30.0, ties=False):
+    """(L, N, 7) boxes in clusters over +-spread m, (L, N) scores with ~15%
+    invalid rows, (L,) thresholds mixed per lane (0 and 0.55 included)."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-spread, spread, (lanes, max(n // 5, 1), 2))
+    pick = rng.integers(0, centres.shape[1], (lanes, n))
+    boxes = np.zeros((lanes, n, 7), np.float32)
+    boxes[..., :2] = np.take_along_axis(centres, pick[..., None], 1) + rng.normal(0, 0.8, (lanes, n, 2))
+    boxes[..., 2] = rng.uniform(-1, 1, (lanes, n))
+    boxes[..., 3:6] = rng.uniform(0.4, 6.0, (lanes, n, 3))
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (lanes, n))
+    scores = (rng.choice(np.float32([0.2, 0.5, 0.9]), (lanes, n)) if ties
+              else rng.random((lanes, n), np.float32))
+    scores[rng.random((lanes, n)) < 0.15] = -1e9
+    thresh = rng.choice(np.float32([0.0, 0.1, 0.2, 0.35, 0.55]), lanes)
+    return boxes, scores.astype(np.float32), thresh
+
+
+def _sorted_rows(boxes, scores, pre):
+    from pillarnext_tpu_torch.core import nms
+
+    k = min(pre, boxes.shape[1])
+    top, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    order = order[:, :k]
+    rows = torch.gather(boxes, 1, order[..., None].expand(-1, -1, boxes.shape[-1]))
+    return rows, top[:, :k] > nms.NEG_INF / 2, order
+
+
+def _lanes_clear_of_ties(boxes, scores, thresh, pre, margin):
+    """Lanes in which no pair of valid candidates has a nonzero IoU (the
+    port's formula, on the card) within ``margin`` of the lane's threshold."""
+    from pillarnext_tpu_torch.core import torch_box_ops
+
+    rows, valid, _ = _sorted_rows(boxes, scores, pre)
+    iou = torch_box_ops.boxes_iou_bev(rows, rows)
+    near = ((iou - thresh[:, None, None]).abs() < margin) & (iou != 0)
+    near &= valid[:, :, None] & valid[:, None, :] & torch.ones_like(near[0]).triu(1)
+    return ~near.flatten(1).any(1)
+
+
+def _streamed_nms(boxes, scores, thresh, pre, post, circle=False):
+    """The host-driven chunk loop (``_streamed`` + ``_select``) on the same
+    card: ``_chunked_nms``, the CPU's path."""
+    from pillarnext_tpu_torch.core import nms, torch_box_ops
+
+    th = thresh.reshape(-1, 1, 1)
+    if circle:
+        r2 = torch.square(th)
+        return nms._chunked_nms(boxes[..., :2], scores, pre, post,
+                                lambda a, b: torch.square(a[..., :, None, :] - b[..., None, :, :]).sum(-1) < r2)
+    return nms._chunked_nms(boxes, scores, pre, post, lambda a, b: torch_box_ops.boxes_iou_bev(a, b) > th)
+
+
+@pytest.mark.parametrize("lanes,n,pre,post,ties", [
+    (1, 1, 1000, 83, False), (40, 1000, 1000, 83, False), (40, 1000, 1000, 1000, True),
+    (7, 300, 1000, 500, False), (13, 777, 500, 20, True), (3, 129, 100, 5, False), (40, 64, 1000, 83, True),
+])
+def test_nms_kernel_matches_the_chunk_loop(device, lanes, n, pre, post, ties):
+    """The kernel's (sel, sel_valid) equal ``_streamed`` + ``_select`` on the
+    card, lane for lane, wherever no pair's IoU lies within 1e-5 of the
+    lane's threshold; post_max below and above the kept count."""
+    from pillarnext_tpu_torch.core import nms
+
+    b, s, t = _nms_scene(lanes, n, seed=lanes * 1000 + n, ties=ties)
+    boxes, scores, thresh = (torch.from_numpy(x).to(device) for x in (b, s, t))
+    before = nms.card_greedy_nms.launches
+    sel, sel_valid = nms.rotated_nms(boxes, scores, thresh, pre, post)
+    torch.cuda.synchronize()
+    assert nms.card_greedy_nms.launches == before + 1
+    want, want_valid = _streamed_nms(boxes, scores, thresh, pre, post)
+    clear = _lanes_clear_of_ties(boxes, scores, thresh, pre, 1e-5)
+    assert clear.float().mean() >= 0.5
+    assert torch.equal(sel_valid[clear], want_valid[clear])
+    assert torch.equal(sel[clear], want[clear])
+    assert sel.dtype == torch.int64 and sel_valid.dtype == torch.bool and sel.shape == (lanes, post)
+    assert torch.all(sel[~sel_valid] == 0)
+
+
+def test_nms_kernel_matches_the_native_greedy_nms(device):
+    """Against ``native_geometry.rotated_nms`` (exact polygon clipping, the
+    reference kernel's semantics) on the same score-sorted boxes, in every
+    lane where the exact IoU and the port's f32 boundary integral put no
+    pair of valid candidates on opposite sides of the threshold (the two
+    differ by up to ~1e-2 m^2 on thin boxes, tests/test_torch_port_data.py)."""
+    from pillarnext_tpu_torch.core import native_geometry, nms, torch_box_ops
+
+    lanes, n, th = 12, 400, 0.3
+    b, s, _ = _nms_scene(lanes, n, seed=11, spread=12.0)
+    boxes, scores = torch.from_numpy(b).to(device), torch.from_numpy(s).to(device)
+    sel, sel_valid = nms.rotated_nms(boxes, scores, torch.full((lanes,), th, device=device), n, n)
+    torch.cuda.synchronize()
+    rows, valid, order = (t.cpu() for t in _sorted_rows(boxes, scores, n))
+    port = (torch_box_ops.boxes_iou_bev(rows.to(device), rows.to(device)) > th).cpu().numpy()
+    compared = 0
+    for lane in range(lanes):
+        live = order[lane][valid[lane]].numpy()
+        r7 = rows[lane][valid[lane]].numpy()
+        inter = native_geometry.boxes_overlap_bev(r7, r7)
+        area = r7[:, 3] * r7[:, 4]
+        exact = inter / np.maximum(area[:, None] + area[None, :] - inter, 1e-8) > th
+        m = len(live)
+        if (np.triu(exact != port[lane][:m, :m], 1)).any():
+            continue
+        want = live[native_geometry.rotated_nms(r7, th)]
+        assert 5 < len(want) < m
+        np.testing.assert_array_equal(sel[lane][sel_valid[lane]].cpu().numpy(), want)
+        compared += 1
+    assert compared >= lanes // 2
+
+
+def test_nms_kernel_keeps_a_chain_across_the_old_chunk_boundary(device):
+    """A chain of 1000 unit boxes 0.6 m apart (neighbours' IoU 0.25 > 0.2):
+    greedy keeps every other one, so kept rows cross the chunk loop's
+    128-candidate boundaries and the kernel's 64-row words."""
+    from pillarnext_tpu_torch.core import nms
+
+    n = 1000
+    boxes = torch.zeros(2, n, 7)
+    boxes[..., 0] = torch.arange(n, dtype=torch.float32) * 0.6
+    boxes[..., 3:6] = 1.0
+    boxes[1, :, 1] = 5.0
+    scores = torch.linspace(1.0, 0.1, n).repeat(2, 1)
+    sel, sel_valid = nms.rotated_nms(boxes.to(device), scores.to(device), 0.2, n, 600)
+    torch.cuda.synchronize()
+    assert torch.equal(sel_valid.sum(1).cpu(), torch.tensor([500, 500]))
+    assert torch.equal(sel[:, :500].cpu(), torch.arange(0, n, 2).repeat(2, 1))
+    want, want_valid = _streamed_nms(boxes.to(device), scores.to(device), torch.full((2,), 0.2, device=device),
+                                     n, 600)
+    assert torch.equal(sel, want) and torch.equal(sel_valid, want_valid)
+
+
+@pytest.mark.parametrize("lanes,n,post", [(40, 1000, 83), (5, 200, 300), (1, 70, 1)])
+def test_circle_nms_kernel_matches_the_chunk_loop(device, lanes, n, post):
+    from pillarnext_tpu_torch.core import nms
+
+    b, s, _ = _nms_scene(lanes, n, seed=n + post, ties=lanes == 5)
+    radius = np.random.default_rng(n).choice(np.float32([0.5, 1.0, 3.0]), lanes)
+    centres, scores, r = (torch.from_numpy(x).to(device) for x in (b[..., :2].copy(), s, radius))
+    sel, sel_valid = nms.circle_nms(centres, scores, r, n, post)
+    torch.cuda.synchronize()
+    want, want_valid = _streamed_nms(centres, scores, r, n, post, circle=True)
+    assert torch.equal(sel, want) and torch.equal(sel_valid, want_valid)
+
+
+def test_nms_kernel_rejects_bad_input(device):
+    from pillarnext_tpu_torch.core import nms
+
+    b, s, t = _nms_scene(4, 100, seed=5)
+    boxes, scores, thresh = (torch.from_numpy(x).to(device) for x in (b, s, t))
+    rows, valid, order = _sorted_rows(boxes, scores, 100)
+    ok = dict(rows=rows, valid=valid, order=order, thresh=thresh, post_max=10, circle=False)
+    nms.card_greedy_nms(**ok)
+    for bad, match in (
+        (dict(rows=rows.cpu()), "CUDA"),
+        (dict(rows=rows.double()), "dtype"),
+        (dict(rows=rows.transpose(0, 1).contiguous().transpose(0, 1)), "contiguous"),
+        (dict(circle=True), "2 values"),
+        (dict(valid=valid[:, :50].contiguous()), "shapes"),
+        (dict(valid=valid.to(torch.uint8)), "dtype"),
+        (dict(order=order.to(torch.int32)), "order"),
+        (dict(order=order.t().contiguous().t()), "order"),
+        (dict(thresh=thresh[:3].contiguous()), "shapes"),
+        (dict(thresh=thresh.double()), "dtype"),
+        (dict(post_max=-1), "sizes"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            nms.card_greedy_nms(**{**ok, **bad})
+    big = torch.zeros(1, nms.MAX_CARD_CANDIDATES + 1, 7, device=device)
+    with pytest.raises(ValueError, match="sizes"):
+        nms.card_greedy_nms(big, torch.ones(big.shape[:2], dtype=torch.bool, device=device),
+                         torch.zeros(big.shape[:2], dtype=torch.int64, device=device), thresh[:1], 10, False)
+    with pytest.raises(ValueError, match="dtype"):
+        nms.rotated_nms(boxes.to(torch.bfloat16), scores, thresh, 100, 10)
+    sel, sel_valid = nms.rotated_nms(boxes[:, :0], scores[:, :0], thresh, 100, 10)  # no candidates
+    torch.cuda.synchronize()
+    assert sel.shape == (4, 10) and not sel_valid.any() and not sel.any()
+
+
+def test_nms_kernel_never_synchronises(device, monkeypatch):
+    """Under sync debug mode "error", a rotated and a circle NMS at the eval
+    shape (40 lanes of 1000 candidates) with thresholds on the card, and one
+    with a float threshold from the host, run without a synchronisation:
+    one kernel entry call each."""
+    from pillarnext_tpu_torch.core import nms
+
+    b, s, t = _nms_scene(40, 1000, seed=9)
+    boxes, scores, thresh = (torch.from_numpy(x).to(device) for x in (b, s, t))
+    nms.rotated_nms(boxes, scores, thresh, 1000, 83)  # builds the library outside the sync check
+    torch.cuda.synchronize()
+    names = []
+    launch = kernels.launch
+    monkeypatch.setattr(kernels, "launch", lambda name, *args: (names.append(name), launch(name, *args)))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = nms.rotated_nms(boxes, scores, thresh, 1000, 83)
+        circ = nms.circle_nms(boxes, scores, thresh * 4, 1000, 83)
+        flt = nms.rotated_nms(boxes, scores, 0.2, 1000, 83)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert names == ["pnx_nms"] * 3
+    want = _streamed_nms(boxes, scores, thresh, 1000, 83)
+    clear = _lanes_clear_of_ties(boxes, scores, thresh, 1000, 1e-5)
+    assert torch.equal(out[0][clear], want[0][clear]) and torch.equal(out[1][clear], want[1][clear])
+    assert torch.equal(circ[0], _streamed_nms(boxes, scores, thresh * 4, 1000, 83, circle=True)[0])
+    assert flt[1].any()
+
+
+def test_kernel_device_time_belongs_to_its_launch_op(device):
+    """A trace gives each kernel's device time to the op ``pnx::launch`` it
+    was launched in, and so to the spans around the call: kernel 2 and the
+    NMS kernel here (kernels 1-4 share ``kernels.launch``).  Up to three
+    windows, as torch.profiler at times loses a record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pillarnext_tpu_torch.core import nms
+    from pillarnext_tpu_torch.ops.gather import monotone_row_gather
+    from pillarnext_tpu_torch.utils import profiling
+
+    table = torch.randn(4096, 64, device=device)
+    idx = torch.arange(0, 8192, 3, dtype=torch.int32, device=device)
+    b, s, t = _nms_scene(4, 200, seed=3)
+    boxes, scores, thresh = (torch.from_numpy(x).to(device) for x in (b, s, t))
+
+    def calls():
+        with profiling.annotate("gather_span"):
+            monotone_row_gather(table, idx)
+        with profiling.annotate("nms_span"):
+            nms.rotated_nms(boxes, scores, thresh, 200, 83)
+        torch.cuda.synchronize()
+
+    calls()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            calls()
+        host = [e for e in prof.events() if e.device_type != torch.autograd.DeviceType.CUDA]
+        ops = [e.device_time_total for e in host if e.name == "pnx::launch"]
+        spans = {e.name: e.device_time_total for e in host if e.name.endswith("_span")}
+        if len(ops) == 2 and all(t > 0 for t in ops):
+            break
+    assert len(ops) == 2 and all(t > 0 for t in ops), ops
+    assert spans["gather_span"] >= ops[0] and spans["nms_span"] >= ops[1]

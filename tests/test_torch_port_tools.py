@@ -151,7 +151,8 @@ def test_eval_breakdown_run_reports_every_prefix():
     assert [r["name"] for r in rec["rows"]][-1] == "+neck" and len(rec["rows"]) == 8
     assert rec["card"] is None and all(r["device_ms"] is None for r in rec["rows"])
     assert all(r["ms"] > 0 and set(r["launches"]) == {"pfn_two_layer", "monotone_row_gather",
-                                                      "sorted_segment_bcast"} for r in rec["rows"])
+                                                      "sorted_segment_bcast", "card_greedy_nms"}
+               for r in rec["rows"])
 
 
 # ---------------------------------------------------------------- train_breakdown
