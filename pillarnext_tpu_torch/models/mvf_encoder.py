@@ -38,6 +38,14 @@ tower block recomputed in the backward with its BatchNorm statistics
 updated once (``layers.recomputed``), as JAX remats each block, and a
 readback whose backward sums by kernel 3 (``_Bilinear``).  Every sum of
 the step runs in one order, so two steps give the same bits.
+
+Spans (utils/profiling.annotate), inside the detector's ``model.reader``:
+``mvf.views`` (both compactions and decorations), ``mvf.pillar_view`` and
+``mvf.cylinder_view`` (PFN stack, densify, tower and readback), in each of
+them ``mvf.tower`` once a tower block (inside what a recomputed block
+replays, so the replay in the backward opens it again) and
+``mvf.readback``; then ``mvf.pointnet`` (both PointNets) and
+``mvf.bev_max`` (the coarse max).
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from pillarnext_tpu_torch.ops import scatter
 from pillarnext_tpu_torch.ops.compact import compactify, invert_slot_map
 from pillarnext_tpu_torch.ops.densify import densify
 from pillarnext_tpu_torch.ops.voxelize import ViewCoords, VoxelGrid, divide, mvf_view_coords
+from pillarnext_tpu_torch.utils import profiling
 
 
 class PointNet(nn.Module):
@@ -188,9 +197,16 @@ class SingleView(nn.Module):
             for block in stage:
                 # training keeps only each block's input and recomputes the
                 # block in the backward (JAX remats each block, mvf_encoder.py:115-120)
-                x = recomputed(block, x) if self.training else block(x)
+                x = recomputed(block, x, forward=_tower_block) if self.training else _tower_block(block, x)
         u, v = divide(readback.fu, self.ds), divide(readback.fv, self.ds)
-        return _bilinear(x.permute(0, 2, 3, 1), batch_idx, u, v, plain)
+        with profiling.annotate("mvf.readback"):
+            return _bilinear(x.permute(0, 2, 3, 1), batch_idx, u, v, plain)
+
+
+def _tower_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """One tower block under the ``mvf.tower`` span."""
+    with profiling.annotate("mvf.tower"):
+        return block(x)
 
 
 class MVFFeatureNet(nn.Module):
@@ -250,47 +266,52 @@ class MVFFeatureNet(nn.Module):
         cap_p = min((capacity or self.pillar_capacity) * b, pg.num_pillars * b)
         cap_c = min(self.cylinder_capacity * b, cg.num_pillars * b)
 
-        pts = points.reshape(-1, d).float()
-        valid, pv, cv, cyl_pos = mvf_view_coords(pg, cg, pts[:, :3], mask.reshape(-1))
-        batch_idx = torch.arange(b, dtype=torch.int32, device=points.device).repeat_interleave(n)
-        pid = torch.where(valid, batch_idx * pg.num_pillars + pv.v * pg.size_x + pv.u, b * pg.num_pillars)
-        order, slot_p, slot_id_p, n_p = compactify(pid, b * pg.num_pillars, cap_p)
-        # from here every per-point tensor is in pillar order
-        pts, valid, batch_idx, cyl_pos = pts[order], valid[order], batch_idx[order], cyl_pos[order]
-        pv, cv = ViewCoords(*(t[order] for t in pv)), ViewCoords(*(t[order] for t in cv))
-        cid = torch.where(valid, batch_idx * cg.num_pillars + cv.v * cg.size_x + cv.u, b * cg.num_pillars)
-        # order_c: pillar order -> cylinder order, stable within a cell
-        order_c, slot_c, slot_id_c, n_c = compactify(cid, b * cg.num_pillars, cap_c)
-        if telemetry is not None:
-            telemetry["pillar_active"] = n_p
-            telemetry["pillar_overflow"] = torch.clamp(n_p - cap_p, min=0)
-            telemetry["cylinder_active"] = n_c
-            telemetry["cylinder_overflow"] = torch.clamp(n_c - cap_c, min=0)
+        with profiling.annotate("mvf.views"):
+            pts = points.reshape(-1, d).float()
+            valid, pv, cv, cyl_pos = mvf_view_coords(pg, cg, pts[:, :3], mask.reshape(-1))
+            batch_idx = torch.arange(b, dtype=torch.int32, device=points.device).repeat_interleave(n)
+            pid = torch.where(valid, batch_idx * pg.num_pillars + pv.v * pg.size_x + pv.u, b * pg.num_pillars)
+            order, slot_p, slot_id_p, n_p = compactify(pid, b * pg.num_pillars, cap_p)
+            # from here every per-point tensor is in pillar order
+            pts, valid, batch_idx, cyl_pos = pts[order], valid[order], batch_idx[order], cyl_pos[order]
+            pv, cv = ViewCoords(*(t[order] for t in pv)), ViewCoords(*(t[order] for t in cv))
+            cid = torch.where(valid, batch_idx * cg.num_pillars + cv.v * cg.size_x + cv.u, b * cg.num_pillars)
+            # order_c: pillar order -> cylinder order, stable within a cell
+            order_c, slot_c, slot_id_c, n_c = compactify(cid, b * cg.num_pillars, cap_c)
+            if telemetry is not None:
+                telemetry["pillar_active"] = n_p
+                telemetry["pillar_overflow"] = torch.clamp(n_p - cap_p, min=0)
+                telemetry["cylinder_active"] = n_c
+                telemetry["cylinder_overflow"] = torch.clamp(n_c - cap_c, min=0)
 
-        # no parameter reaches the decoration or the two view permutations, so
-        # autograd records none of them: the fused features carry no gradient
-        tail = pts[:, 3:]
-        pillar_feats = _decorate(pts[:, :3], tail, pv.u, pv.v, valid, slot_p, cap_p + 1, pg, plain)
-        valid_c = valid[order_c]
-        cyl_feats = _decorate(cyl_pos[order_c], tail[order_c], cv.u[order_c], cv.v[order_c], valid_c,
-                              slot_c, cap_c + 1, cg, plain)
-        to_pillar = torch.empty_like(order_c).scatter_(
-            0, order_c, torch.arange(order_c.shape[0], device=order_c.device))
-        fused = torch.cat([pillar_feats, cyl_feats.index_select(0, to_pillar)], dim=-1)
-        fused = torch.where(valid[:, None], fused, 0.0)
-        if self.dtype is not None:
-            fused = fused.to(self.dtype)
+            # no parameter reaches the decoration or the two view permutations, so
+            # autograd records none of them: the fused features carry no gradient
+            tail = pts[:, 3:]
+            pillar_feats = _decorate(pts[:, :3], tail, pv.u, pv.v, valid, slot_p, cap_p + 1, pg, plain)
+            valid_c = valid[order_c]
+            cyl_feats = _decorate(cyl_pos[order_c], tail[order_c], cv.u[order_c], cv.v[order_c], valid_c,
+                                  slot_c, cap_c + 1, cg, plain)
+            to_pillar = torch.empty_like(order_c).scatter_(
+                0, order_c, torch.arange(order_c.shape[0], device=order_c.device))
+            fused = torch.cat([pillar_feats, cyl_feats.index_select(0, to_pillar)], dim=-1)
+            fused = torch.where(valid[:, None], fused, 0.0)
+            if self.dtype is not None:
+                fused = fused.to(self.dtype)
 
-        pillar_view = self.pillar_view(fused, valid, slot_p, slot_id_p, (b, pg.size_y, pg.size_x),
-                                       pv, batch_idx, plain)
-        cylinder_view = self.cylinder_view(fused.index_select(0, order_c), valid_c, slot_c, slot_id_c,
-                                           (b, cg.size_y, cg.size_x), cv, batch_idx, plain)
-        pointwise = self.pointnet1(fused, valid)
-        pointwise = self.pointnet2(torch.cat([pointwise, pillar_view, cylinder_view], dim=-1), valid)
+        with profiling.annotate("mvf.pillar_view"):
+            pillar_view = self.pillar_view(fused, valid, slot_p, slot_id_p, (b, pg.size_y, pg.size_x),
+                                           pv, batch_idx, plain)
+        with profiling.annotate("mvf.cylinder_view"):
+            cylinder_view = self.cylinder_view(fused.index_select(0, order_c), valid_c, slot_c, slot_id_c,
+                                               (b, cg.size_y, cg.size_x), cv, batch_idx, plain)
+        with profiling.annotate("mvf.pointnet"):
+            pointwise = self.pointnet1(fused, valid)
+            pointwise = self.pointnet2(torch.cat([pointwise, pillar_view, cylinder_view], dim=-1), valid)
 
         # the coarse BEV: the max over all points of each (H/ds, W/ds) cell
-        ds = self.pillar_view.ds
-        ho, wo = pg.size_y // ds, pg.size_x // ds
-        coarse = torch.where(valid, batch_idx * (ho * wo) + (pv.v // ds) * wo + pv.u // ds, b * ho * wo)
-        table = scatter.segment_max(pointwise, coarse, b * ho * wo + 1)
-        return table[: b * ho * wo].reshape(b, ho, wo, self.out_channels)
+        with profiling.annotate("mvf.bev_max"):
+            ds = self.pillar_view.ds
+            ho, wo = pg.size_y // ds, pg.size_x // ds
+            coarse = torch.where(valid, batch_idx * (ho * wo) + (pv.v // ds) * wo + pv.u // ds, b * ho * wo)
+            table = scatter.segment_max(pointwise, coarse, b * ho * wo + 1)
+            return table[: b * ho * wo].reshape(b, ho, wo, self.out_channels)

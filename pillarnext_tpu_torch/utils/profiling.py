@@ -15,7 +15,10 @@ Counterpart of pillarnext_tpu/utils/profiling.py:23-62:
   ``train.loader_wait`` (train/trainer.py), ``model.reader``,
   ``model.backbone``, ``model.neck`` and ``model.head``
   (models/detector.py), ``nms``, ``nms.kernel`` (the card's NMS kernel)
-  and ``nms.sync`` (the CPU path's host reads; core/nms.py).
+  and ``nms.sync`` (the CPU path's host reads; core/nms.py), and inside
+  an MVF reader ``mvf.views``, ``mvf.pillar_view``, ``mvf.cylinder_view``,
+  ``mvf.tower``, ``mvf.readback``, ``mvf.pointnet`` and ``mvf.bev_max``
+  (models/mvf_encoder.py).
 - ``enable_nan_checks()``: autograd's anomaly mode, which raises where a
   backward first gives a NaN (the runtime analogue of the reference's
   hand-written NaN guards in RegLoss, centerloss.py:56-57).

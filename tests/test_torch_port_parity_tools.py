@@ -18,6 +18,7 @@ made from a seed with numpy:
 from __future__ import annotations
 
 import importlib.util
+import time
 from pathlib import Path
 
 import jax
@@ -29,6 +30,7 @@ import torch
 import torch_mirror
 import torch_mirror3d
 import torch_mirror_mvf
+from pillarnext_tpu.core import native_geometry as jax_geometry
 from pillarnext_tpu.utils import builders as jax_builders
 from pillarnext_tpu.utils import torch_import as jax_import
 from pillarnext_tpu.utils.config import load_experiment as jax_load_experiment
@@ -65,6 +67,29 @@ FAMILIES = {
     "voxel18": (voxel_parity, VOXEL_OVERRIDES),
     "mvf": (mvf_parity, MVF_OVERRIDES),
 }
+GEOMETRY_WAIT_S = 180  # make's own limit is 120 s
+
+
+def load_jax_geometry() -> None:
+    """Load the JAX package's host geometry library, which the JAX mirrors'
+    oracle NMS calls.  ``native_geometry`` builds it with ``make`` in place
+    on first use and remembers a failed load for the rest of the process.
+    The suite's worker processes start together, so another worker's
+    compiler can still be writing the file when this one loads it.  Clear
+    the remembered failure and load again until the writer has finished."""
+    deadline = time.monotonic() + GEOMETRY_WAIT_S
+    while True:
+        jax_geometry._build_failed = False
+        if jax_geometry._load() is not None:
+            return
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{jax_geometry._LIB_PATH} did not build or load within {GEOMETRY_WAIT_S} s")
+        time.sleep(0.5)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_geometry_library():
+    load_jax_geometry()
 
 
 def model_cfg(family: str) -> dict:

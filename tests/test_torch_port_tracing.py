@@ -241,3 +241,45 @@ def test_a_recording_profiler_changes_no_bit(runs):
     assert all(torch.equal(a, b) for a, b in zip(plain["params"], traced["params"]))
     for a, b in zip(plain["dets"], traced["dets"]):
         assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+MVF_TOWER_BLOCKS = 12  # each view's tower: 4 stages of a ConvBlock and 2 ResidualBlocks
+
+
+def test_mvf_spans_open_in_the_reader_and_the_recompute_reopens_the_tower(monkeypatch):
+    """A train step and an eval forward of the narrowed MVF: each of the
+    reader's spans opens once a forward in ``model.reader``, the tower's
+    once a block in its view and the readback once in each view; in the
+    step's backward each recomputed block opens ``mvf.tower`` again, in
+    ``train.backward`` (autograd runs the backward on the calling thread on
+    the CPU), and no other reader span (spans kept by a stand-in recorder,
+    as if a profiler recorded)."""
+    from tests.test_torch_port_mvf import MVF, OVERRIDES
+
+    cfg = load_experiment(str(MVF), OVERRIDES)
+    model = build_model(cfg["model"], device="cpu", generator=torch.Generator().manual_seed(0), train=True)
+    opt, _ = build_optimizer(cfg, 1, list(model.parameters()))
+    batch = trainer.batch_to_device(synthetic_batches(cfg, 1, 2, 800, seed=0, n_objects=2, max_points=1000)[0],
+                                    "cpu")
+    monkeypatch.setattr(profiling, "_autograd_profiler", types.SimpleNamespace(_is_profiler_enabled=True))
+    monkeypatch.setattr(torch.profiler, "record_function", _Nested)
+    views = {"mvf.views": "model.reader", "mvf.pillar_view": "model.reader",
+             "mvf.cylinder_view": "model.reader", "mvf.pointnet": "model.reader", "mvf.bev_max": "model.reader"}
+    forward = collections.Counter({**{(n, p): 1 for n, p in views.items()},
+                                   ("mvf.tower", "mvf.pillar_view"): MVF_TOWER_BLOCKS,
+                                   ("mvf.tower", "mvf.cylinder_view"): MVF_TOWER_BLOCKS,
+                                   ("mvf.readback", "mvf.pillar_view"): 1,
+                                   ("mvf.readback", "mvf.cylinder_view"): 1})
+    for train in (True, False):
+        _Nested.opened, _Nested._stack = [], []
+        if train:
+            train_step(model, opt, batch)
+        else:
+            model.eval()
+            with torch.no_grad():
+                model(batch["points"], batch["points_mask"])
+        seen = collections.Counter((n, p) for n, p in _Nested.opened if n.startswith("mvf."))
+        want = forward + (collections.Counter({("mvf.tower", "train.backward"): 2 * MVF_TOWER_BLOCKS})
+                          if train else collections.Counter())
+        assert seen == want, (train, seen)
+        assert [p for n, p in _Nested.opened if n == "model.reader"] == (["train.forward"] if train else [None])
